@@ -1,11 +1,11 @@
 """Scaling benchmark: sharded-pipeline throughput vs shard count.
 
-BASELINE's second metric is samples/s scaling at 1 chip / 1 host /
-N hosts. Without a pod attached, this script exercises the REAL sharded
-program (shard_map + ppermute halos + all_gather) on a virtual device
-mesh (CPU, XLA_FLAGS=--xla_force_host_platform_device_count) to validate
-scaling mechanics; on a pod slice the same script runs unmodified with
-real devices (pass --platform tpu) and reports true samples/s.
+BASELINE's second metric is samples/s scaling at 1 device / 1 host /
+N hosts. By default this script exercises the REAL sharded program
+(shard_map + ppermute halos + all_gather) on a virtual CPU device mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count) to validate scaling
+mechanics; on a multi-GPU host the same script runs with real devices
+(pass --platform gpu) and reports true samples/s.
 
 Prints one JSON line per mesh size.
 """
@@ -34,6 +34,8 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", args.platform)
+    from doa_tpu.utils.profiling import use_compile_cache
+    use_compile_cache()
 
     from doa_tpu.configs import (
         ArrayGeometry, DoaConfig, Estimator, GridSpec1D)
@@ -76,6 +78,7 @@ def main():
             "shards": n,
             "value": round(sps, 1),
             "unit": "samples/s/channel",
+            "platform": jax.devices()[0].platform,
         }
         if args.platform == "cpu":
             # Virtual devices share physical cores: throughput numbers

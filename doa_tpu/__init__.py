@@ -1,10 +1,10 @@
-"""doa_tpu — a TPU-native direction-of-arrival (DoA) estimation framework.
+"""doa_tpu — a batched direction-of-arrival (DoA) estimation framework
+in JAX, run on a GPU (CPU for tests).
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of the
-`lauraflu/gr-doa` GNU Radio out-of-tree module (see /root/repo/SURVEY.md for
-the component map; the reference mount was empty at build time, so parity
-targets are pinned by SURVEY.md + BASELINE.json and the golden tests in
-`tests/golden.py`).
+A from-scratch JAX/XLA re-design of the capability set of the
+`lauraflu/gr-doa` GNU Radio out-of-tree module (see SURVEY.md for the
+component map; parity targets are pinned by SURVEY.md + BASELINE.json
+and the golden tests in `tests/golden.py`).
 
 Design stance (SURVEY.md §7.1):
   * pure-functional kernel library over arrays with a leading snapshot-batch
@@ -25,7 +25,8 @@ Component map (reference → here):
   phase_offset_est         → doa_tpu.calib.phase_offset
   twinrx_usrp_source       → doa_tpu.io (recorded IQ + synthetic; no UHD here)
   save_antenna_calib       → doa_tpu.calib.artifacts
-  *_cnx accelerator blocks → doa_tpu.ops.pallas (MXU bf16/f32 kernels)
+  *_cnx accelerator blocks → doa_tpu.ops.interleaved + pipeline_tpu
+                             (bf16/int8 ingest, batched device stages)
   apps/*.grc flowgraphs    → doa_tpu.pipeline + doa_tpu.configs presets
 """
 

@@ -211,16 +211,15 @@ class DoaConfig:
     capon_diag_load: float = 1e-4     # diagonal loading for Capon R⁻¹ (× tr(R)/N)
     compute_dtype: str = "float32"    # "float32" | "bfloat16" scan precision
     # Signal-subspace extraction: "power" = batched subspace iteration
-    # (MXU-native, the fast path); "eigh" = full eigendecomposition
-    # (exact; LAPACK-style, slower on TPU for large batches).
+    # (batched matmuls, the fast path); "eigh" = full
+    # eigendecomposition (exact; slower for large batches).
     subspace_method: str = "power"
     power_iters: int = 8              # EFFECTIVE iteration count for "power"
     # Power-iteration schedule: how many repeated-squaring passes build
     # the per-round apply matrix E^(2^s). Under the MGS orthonormalizer
-    # (r2 s4, exp_mgs.py) "e1" is BOTH the fastest and the most robust
-    # schedule — exact on planted spectra through eigenvalue spread 10⁴
-    # (~40 dB source power imbalance), 5.8 ms vs NS-e1's 20.7 at the
-    # headline shape — so the old speed-vs-robustness dial is gone.
+    # "e1" is BOTH the cheapest and the most robust schedule — exact on
+    # planted spectra through eigenvalue spread 10⁴ (~40 dB source
+    # power imbalance) — so the old speed-vs-robustness dial is gone.
     # squarings > 0 remain a documented CORRECTNESS hazard with no speed
     # reward (conditioning grows spread^(2^s) between orths; "e4" loses
     # a −20 dB source) — kept for the config surface and regression
@@ -255,9 +254,8 @@ class DoaConfig:
     # the noise bulk (γ_max < subspace_escalate_signal_floor — e.g.
     # spectrum monitoring before any signal appears, where EVERY
     # window has γ ≈ 1) never escalates: there is no subspace to
-    # converge to, and the old whole-batch trigger cost the r3 bench
-    # 3× on exactly that input (docs/PERF.md r3 post-mortem). Healthy
-    # captures pay only tiny detector matmuls, never an extra pass
+    # converge to, and a whole-batch trigger would run the extra
+    # rounds on every window of exactly that input. Healthy captures pay only tiny detector matmuls, never an extra pass
     # over E. Measured: the 25 dB imbalance row matches the eigh
     # column at default power_iters (docs/ACCURACY.md); benign-regime
     # γ ≥ 16 (no spurious escalation down to 0 dB SNR); noise-only
@@ -274,8 +272,8 @@ class DoaConfig:
     # on the tiny mean — 1 or F matrices, not B or F·B) and refine per
     # window with power_iters_warm E-applies. The E reads are the
     # stage cost (8 passes over the (F·B, 2N, 2N) stack at c5), so a
-    # good init cuts the stage near-proportionally: c5 77.3 → 59.1 ms,
-    # headline measured in docs/PERF.md. The refinement still converges
+    # good init cuts the stage near-proportionally. The refinement
+    # still converges
     # to each window's OWN subspace — init affects speed, not the
     # fixed point. Measured equivalent to cold (order-invariant angle
     # diff ≤ 0.013°) at 0 dB SNR, 20 dB source imbalance, 2° near-
@@ -283,77 +281,30 @@ class DoaConfig:
     # (tests/test_power_subspace.py, tests/test_wideband_fast.py).
     # Requires subspace_method="power"; cold iteration via False.
     # power_iters_warm: E-applies per window from the mean init. The
-    # r5 default is 2 (was 3): measured equal to cold through every
+    # default is 2: measured equal to cold through every
     # probed edge — 0/20 dB imbalance (bit-equal angles), abrupt
     # mid-capture scene change (6e-4°), 0 dB SNR (2e-4°) — because
     # each apply contracts the init error by λ_{K+1}/λ_K (large after
     # S-sample averaging), and the armed escalation detector catches
     # any window where 2 applies were NOT enough (res > tol ⇒
-    # per-window extra rounds). One fewer pass over the E stack:
-    # c5 54.3 → 50.3 ms, headline ~0.5 ms (docs/PERF.md r5).
+    # per-window extra rounds).
     subspace_warm_start: bool = True
     power_iters_warm: int = 2
     # MUSIC scan strategy: "dense" scans the full grid; "hierarchical"
     # (ULA + power path only) runs a coarse grid scan then refines each
     # peak on an on-device micro-grid — resolution beyond the grid at a
-    # fraction of the flops (ops.hierarchical); "pallas" (power path
-    # only) runs the fused lane-packed Pallas scan kernel
-    # (ops.pallas.music_scan) — no (B, G, 2K) intermediate in HBM.
-    # "auto" (default) resolves to "pallas" whenever the fused fast
-    # path is active (TPU + power subspace + no smoothing) and "dense"
-    # otherwise — the measured-fastest composition on each backend.
-    scan_mode: str = "auto"
-    # Covariance chunk-Gram implementation: "auto" picks the Pallas
-    # kernel on TPU backends and XLA elsewhere; "xla" | "pallas" force.
-    cov_impl: str = "auto"
-    # Subspace-iteration implementation on the fused (embedded-E) path:
-    # "auto" (default) = the batched-einsum XLA iteration in transposed
-    # layout (cpx_ops.signal_subspace_from_E_T — measured fastest; the
-    # warm path skips the Ep materialization so E crosses HBM once per
-    # apply); "xla" forces the einsum path everywhere; "pallas" = the
-    # cold in-VMEM consolidated kernel (ops/pallas/subspace.py).
-    # (An r3 "fused" warm-refine Pallas kernel was REMOVED in r4:
-    # 6× slower at 2N=32 — per-window micro-dot latency — and its
-    # design shape 2N=128 fails to compile on this Mosaic toolchain,
-    # while the einsum warm path runs at 1.2× its E-read floor.
-    # Post-mortem: docs/PERF.md "warm-refine fusion experiments".)
-    subspace_impl: str = "auto"
-    # Gram input precision: "bfloat16" quarters the MXU pass count of the
-    # covariance stage (f32 accumulation; ~3 decimal digits on R entries
-    # — fine above threshold SNR, see docs/ACCURACY.md). "int8" is the
-    # INGEST-QUANTIZED mode (fused Pallas path only): feed a
-    # pre-quantized int8 interleaved buffer
-    # (io.native.quantize_interleaved_int8 → pipe.interleaved(xq)) —
-    # ¼ the input read (the f32 pipeline's bandwidth floor), exact
-    # int32 Gram accumulation, R carries the quantization scale²
-    # (every consumer is scale-invariant). The modern analog of the
-    # reference fork's 16-bit fixed-point Connex ingest (SURVEY §2.2).
+    # fraction of the flops (ops.hierarchical).
+    scan_mode: str = "dense"
+    # Gram input precision on the interleaved-ingest path: "bfloat16"
+    # feeds bf16 operands with f32 accumulation (~3 decimal digits on R
+    # entries — fine above threshold SNR, see docs/ACCURACY.md). "int8"
+    # is the INGEST-QUANTIZED mode: feed a pre-quantized int8
+    # interleaved buffer (io.native.quantize_interleaved_int8 →
+    # pipe.interleaved(xq)) — ¼ the input read, exact int32 Gram
+    # accumulation, R carries the quantization scale² (every consumer
+    # is scale-invariant). The modern analog of the reference fork's
+    # 16-bit fixed-point Connex ingest (SURVEY §2.2).
     cov_dtype: str = "float32"
-    # Wideband incoherent subband-scan + fusion implementation (power
-    # path, compute_dtype float32 only): "xla" = the lax.scan-over-
-    # subbands form (materializes one den/spectrum per subband per
-    # step); "pallas" = the fused two-pass kernel
-    # (ops/pallas/wideband_scan.py — den never leaves VMEM; tf32-class
-    # hi/lo dots); "auto" picks the measured winner per backend
-    # (docs/PERF.md). The kernel is toolchain-sensitive — keep the XLA
-    # fallback reachable (bench try/except pattern).
-    wb_fusion_impl: str = "auto"
-    # 2-D peak extraction implementation (ULA 1-D peaks fuse into the
-    # scan kernel and ignore this): "auto" = the fused Pallas 2-D peaks
-    # kernel whenever the Pallas covariance path is active, XLA
-    # otherwise (the measured default); "xla" keeps the Pallas
-    # covariance/scan kernels but opts out of peaks2d alone (the kernel
-    # is shape-sensitive on some Mosaic toolchains — block_b=64 fails
-    # to compile — and a compile failure inside the one jitted program
-    # cannot be caught piecemeal); "pallas" forces the kernel.
-    peaks_impl: str = "auto"
-    # Overlap-halo exchange in the SHARDED pipeline (SURVEY §2.5 ring
-    # row): "xla" = lax.ppermute collective (default; zero-fills the
-    # last shard), "pallas" = fused ICI async-remote-copy kernel
-    # (ops/pallas/ring.py — pod hardware; ring-wraps into the last
-    # shard, whose tail windows are invalid either way, so valid-window
-    # outputs are identical). Single-chip pipelines ignore it.
-    halo_impl: str = "xla"
 
     def __post_init__(self):
         if not (0 <= self.overlap < self.snapshot_size):
@@ -364,41 +315,18 @@ class DoaConfig:
             raise ValueError(
                 f"subspace_method {self.subspace_method!r} not one of "
                 "'power' | 'eigh' | 'jacobi'")
-        if self.scan_mode not in ("auto", "dense", "hierarchical",
-                                  "pallas"):
+        if self.scan_mode not in ("dense", "hierarchical"):
             raise ValueError(
                 f"scan_mode {self.scan_mode!r} not one of "
-                "'auto' | 'dense' | 'hierarchical' | 'pallas'")
-        if self.scan_mode == "pallas" and self.subspace_method != "power":
-            raise ValueError(
-                "scan_mode='pallas' scans the signal subspace directly "
-                "and requires subspace_method='power'")
+                "'dense' | 'hierarchical'")
         if self.compute_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"compute_dtype {self.compute_dtype!r} not one of "
                 "'float32' | 'bfloat16' | 'int8'")
-        if self.cov_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"cov_impl {self.cov_impl!r} not 'auto' | 'xla' | 'pallas'")
-        if self.subspace_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"subspace_impl {self.subspace_impl!r} not "
-                "'auto' | 'xla' | 'pallas'")
         if self.cov_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"cov_dtype {self.cov_dtype!r} not "
                 "'float32' | 'bfloat16' | 'int8'")
-        if self.halo_impl not in ("xla", "pallas"):
-            raise ValueError(
-                f"halo_impl {self.halo_impl!r} not 'xla' | 'pallas'")
-        if self.peaks_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"peaks_impl {self.peaks_impl!r} not "
-                "'auto' | 'xla' | 'pallas'")
-        if self.wb_fusion_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(
-                f"wb_fusion_impl {self.wb_fusion_impl!r} not "
-                "'auto' | 'xla' | 'pallas'")
         if self.power_schedule not in ("e1", "e2", "e4"):
             raise ValueError(
                 f"power_schedule {self.power_schedule!r} not one of "
@@ -411,7 +339,7 @@ class DoaConfig:
                 "unsquared e1 spectrum): the 25-dB-imbalance safety "
                 "net is off on this config. Squared schedules are a "
                 "documented correctness hazard with no speed reward "
-                "(docs/PERF.md) — prefer e1, or set "
+                "(docs/ACCURACY.md) — prefer e1, or set "
                 "subspace_escalate=False to silence this.",
                 stacklevel=2)
         if self.subspace_escalate_capacity < 1:
@@ -432,7 +360,7 @@ class DoaConfig:
                 raise ValueError(
                     "fusion='tops' has no hierarchical scan (the "
                     "orthogonality metric is grid-pointwise); use "
-                    "scan_mode 'auto'/'dense'")
+                    "scan_mode 'dense'")
         if (self.wideband.fusion == "cssm_auto"
                 and self.geometry.kind == "ura" and self.grid2d is None):
             raise ValueError(
@@ -457,14 +385,14 @@ class DoaConfig:
             if self.wideband.enabled or self.smoothing.enabled:
                 raise ValueError(
                     "beamspace does not compose with wideband/smoothing")
-            if self.scan_mode in ("hierarchical", "pallas"):
+            if self.scan_mode == "hierarchical":
                 raise ValueError(
-                    "beamspace scans are dense (scan_mode 'auto'/'dense')")
+                    "beamspace scans are dense (scan_mode 'dense')")
         # NOTE: irregular overlap (hop not dividing snapshot_size) is
-        # legal on every path: the TPU paths frame it with
-        # gcd(S, hop)-granularity chunk Grams + strided prefix sums
-        # (exact; less MXU-efficient for tiny gcds), the complex/CPU
-        # path frames it explicitly.
+        # legal on every path: the split-complex paths frame it with
+        # gcd(S, hop)-granularity chunk Grams + strided window sums
+        # (exact; many small Grams for tiny gcds), the complex
+        # reference path frames it explicitly.
 
     @property
     def power_squarings(self) -> int:
@@ -485,7 +413,7 @@ class DoaConfig:
         up toward and past 2.5 (S=64, n2=32 → 2.91; a wideband subband
         at S_sub=64, n2=128 → 5.83), where a fixed floor would let
         PURE-NOISE captures qualify as signal-bearing and spuriously
-        escalate (exactly the r3 3× regression class). The effective
+        escalate (every window paying the extra rounds). The effective
         floor is therefore max(subspace_escalate_signal_floor,
         1.5 × edge): unchanged at the measured operating points,
         noise-proof at short-snapshot ones. Pinned by
@@ -569,14 +497,12 @@ PRESETS = {
         grid=GridSpec1D(num_points=1024),
         num_max_vals=2,
     ),
-    # FAST MODE (r5, beyond the five BASELINE presets): the headline
+    # FAST MODE (beyond the five BASELINE presets): the headline
     # 16-element config with bf16 covariance Grams, intended for a
     # BFLOAT16 resident ingest buffer (pipe.interleaved(
     # xil.astype(jnp.bfloat16)) — the input read is the f32 pipeline's
     # bandwidth floor, and an 8-bit-mantissa capture exceeds any real
-    # ADC's dynamic range). Measured 2,492,885 snapshots/s (255× real
-    # time) at angle error IDENTICAL to f32 on the bench's planted
-    # scene (0.030° max over 16384 windows) — docs/PERF.md r5.
+    # ADC's dynamic range).
     "fast_bf16": DoaConfig(
         geometry=ArrayGeometry(kind="ula", num_elements=16,
                                norm_spacing=0.5),
@@ -587,13 +513,11 @@ PRESETS = {
         num_max_vals=2,
         cov_dtype="bfloat16",
     ),
-    # int8 INGEST fast mode (r5): pre-quantize the capture with
+    # int8 INGEST fast mode: pre-quantize the capture with
     # io.native.quantize_interleaved_int8 and feed the int8 buffer to
     # pipe.interleaved — ¼ the input read, EXACT int32 Grams, R is
-    # scale-invariant downstream. Measured 2,704,138 snapshots/s
-    # (277×) at 0.0303° max planted-scene error == the f32 pipeline's
-    # (docs/PERF.md r5) — the modern analog of the reference fork's
-    # 16-bit fixed-point Connex ingest, two bits further.
+    # scale-invariant downstream. The modern analog of the reference
+    # fork's 16-bit fixed-point Connex ingest, two bits further.
     "fast_int8": DoaConfig(
         geometry=ArrayGeometry(kind="ula", num_elements=16,
                                norm_spacing=0.5),

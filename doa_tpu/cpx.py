@@ -1,16 +1,14 @@
 """Split-complex arithmetic: complex tensors as (re, im) float pairs.
 
-Two reasons this exists (SURVEY §7.3 hard part 3):
-  * Pallas TPU has no native complex dtype — kernels carry planar re/im.
-  * Complex matmuls on the MXU decompose into real matmuls anyway; doing
-    the split explicitly lets us use the 3-multiplication Gauss/Karatsuba
-    form (25% fewer MXU flops than XLA's 4-matmul lowering) and pick
-    bf16/f32 per plane.
+Why it exists (SURVEY §7.3 hard part 3): complex matmuls decompose into
+real matmuls anyway; doing the split explicitly lets us use the
+3-multiplication Gauss/Karatsuba form (25% fewer multiply flops than the
+4-matmul lowering) and pick bf16/f32 per plane. Whether complex64 XLA
+would serve as well on the GPU is ROADMAP design debt 3.
 
-The TPU compute path (pipeline_tpu, pallas kernels) runs entirely on
-`Cpx` pairs; the jnp-complex modules in doa_tpu.ops remain the reference
-path and the CPU path. `Cpx` is a pytree, so it passes through jit,
-shard_map, scan, etc.
+The production path (pipeline_tpu) runs entirely on `Cpx` pairs; the
+jnp-complex modules in doa_tpu.ops remain the reference path. `Cpx` is
+a pytree, so it passes through jit, shard_map, scan, etc.
 """
 
 from __future__ import annotations
@@ -126,7 +124,7 @@ def matmul(a: Cpx, b: Cpx, *, gauss: bool = True,
     gauss=True uses the 3-multiplication form
         k1 = ar·(br + bi);  k2 = bi·(ar + ai);  k3 = br·(ai − ar)
         re = k1 − k2;       im = k1 + k3
-    (3 MXU matmuls instead of 4; extra adds ride the VPU for free).
+    (3 matmuls instead of 4; the extra adds are elementwise).
     """
     mm = lambda x, y: jnp.matmul(  # noqa: E731
         x, y, preferred_element_type=preferred_element_type)
@@ -159,7 +157,7 @@ def einsum(subscripts: str, a: Cpx, b: Cpx, *, gauss: bool = True,
 # E is a *-algebra homomorphism: E(AB) = E(A)E(B), E(A^H) = E(A)^T,
 # E(A⁻¹) = E(A)⁻¹, and spectral projectors of E(C) onto eigenvalue
 # subsets are embeddings of C's projectors. This is how all Hermitian
-# factorizations (eigh, cholesky, inverse) run on a complex-free backend.
+# factorizations (eigh, cholesky, inverse) run on real arrays.
 # ---------------------------------------------------------------------
 
 def embed_hermitian(c: Cpx):
@@ -185,18 +183,18 @@ def embed_vector(v: Cpx):
 
 
 def f32_matmuls(fn):
-    """Trace `fn` under jax.default_matmul_precision("float32").
+    """Trace `fn` under jax.default_matmul_precision(MATMUL_PRECISION).
 
-    JAX's DEFAULT matmul precision on TPU truncates f32 inputs to
-    bfloat16 (one MXU pass). That is fine for the explicitly-bf16
-    compute modes, but it silently breaks the power-iteration subspace
-    on structured signals (measured: c4 preset estimates collapse from
-    [80.0, 100.0] to [68.2, 85.0]; with f32 precision they are exact)
-    and biases every covariance Gram by ~0.4% relative. Every compiled
-    pipeline body in this package traces under this scope; explicit
-    bf16/int8 casts (compute_dtype / cov_dtype) are unaffected since
-    bf16 inputs already run at native precision, and Mosaic kernels do
-    true f32 regardless."""
+    On the GPU a float32 matmul at JAX's DEFAULT precision may run as
+    one TF32 tensor-core pass (10-bit mantissa, ~3 decimal digits).
+    That is too coarse for the value-carrying stages: a Gram rounded at
+    that level biases R by ~0.1-1% relative, and the subspace iteration
+    then converges to wrong subspaces on structured signals (the same
+    failure class was measured on an earlier accelerator with a
+    single-pass bf16 matmul — PERF.md "Precision"). CPU tests compute
+    in exact f32 and cannot see it. Every compiled pipeline body in
+    this package traces under this scope; explicit bf16/int8 operands
+    (compute_dtype / cov_dtype) keep their own precision."""
     import functools
     import jax as _jax
 
@@ -208,8 +206,10 @@ def f32_matmuls(fn):
     return wrapped
 
 
-# Precision the pipeline scopes trace under. "float32" (bf16x6 on the
-# MXU) is exact; "tensorfloat32" (bf16x3, ~2^-21 relative) measures
-# indistinguishable on the accuracy presets at a fraction of the cost;
-# "default" (single bf16 pass) is UNSAFE for the subspace iteration.
-MATMUL_PRECISION = "tensorfloat32"
+# The one precision setting for the pipelines' float32 matmuls. "highest"
+# is true f32 (CUDA-core FMA on the GPU): the stages are small-matrix
+# and bandwidth-bound (a 32×32 Gram over 1024 rows is ~16 flop/byte), so
+# it costs little. "tensorfloat32" (one TF32 pass) is the cheaper
+# alternative; chip_smoke.py's precision phase times both and reports
+# the angle error of each.
+MATMUL_PRECISION = "highest"

@@ -132,7 +132,7 @@ def frame_block(tail: np.ndarray | None, block: np.ndarray,
 
 def quantize_interleaved_int8(xil, clip_sigma: float = 6.0):
     """Interleaved f32 sample rows → (int8 rows, scale) for the int8
-    ingest mode (`cov_dtype="int8"`, fused Pallas path).
+    ingest mode (`cov_dtype="int8"`, interleaved path).
 
     q = round(clip(x, ±A)·127/A), A = clip_sigma·RMS — a symmetric
     mid-tread quantizer matching a real int8 ADC driven at

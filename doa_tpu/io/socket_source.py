@@ -14,7 +14,7 @@ Wire format per datagram (little-endian):
     u64 sequence number            | payload: frames × N complex64
 
 A frame is one time-step across all N channels (interleaved c64 — the
-same layout the zero-copy interleaved TPU ingest consumes, so a block
+same layout the zero-copy interleaved ingest consumes, so a block
 assembled here feeds the fused pipeline without any host shuffling).
 """
 

@@ -1,7 +1,7 @@
 """Core DoA ops: pure-functional JAX over snapshot-batched arrays.
 
 Every op takes/returns arrays with a leading snapshot-batch axis B —
-the TPU-native form of the reference's "one covariance matrix per stream
+the batched form of the reference's "one covariance matrix per stream
 item" idiom (SURVEY.md §1).
 """
 

@@ -6,8 +6,8 @@ from stock GNU Radio beamforming blocks; SURVEY §2's estimator family).
 No inverse, no subspace: robust at any snapshot count and the natural
 sanity-check spectrum when MUSIC's model order is wrong.
 
-Complex path here; the TPU split-complex form is
-`cpx_ops.bartlett_spectrum_cpx` (one flattened MXU matmul).
+Complex path here; the split-complex form is
+`cpx_ops.bartlett_spectrum_cpx` (one flattened matmul).
 """
 
 from __future__ import annotations

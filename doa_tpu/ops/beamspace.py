@@ -11,7 +11,7 @@ frequencies lie closest to the sector center, so BᴴB = I: beamspace
 noise stays white and every narrowband subspace estimator runs
 unchanged on (R_b, ǎ) — just in dimension Nb.
 
-Why it earns a slot on TPU: the subspace iteration and scans shrink
+Why it earns a slot: the subspace iteration and scans shrink
 from N to Nb (the (B, 2N, 2N) covariance tensors and the G×2N scan
 matmuls scale down), while in-sector resolution and low-SNR behavior
 match element space — the classic thinning for wide-aperture arrays
@@ -20,8 +20,8 @@ norm) is what keeps out-of-sector angles from fake-peaking: an
 out-of-sector ǎ is an arbitrary unit vector whose noise-subspace
 fraction is O((Nb−K)/Nb), never ≈ 0.
 
-The beam projection happens AFTER the covariance stage (the fused
-element-space cov kernel is unchanged); root-MUSIC/ESPRIT/Min-Norm keep
+The beam projection happens AFTER the covariance stage (the
+element-space covariance is shared with the plain path); root-MUSIC/ESPRIT/Min-Norm keep
 element-space semantics and are config-rejected under beamspace.
 """
 

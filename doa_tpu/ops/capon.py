@@ -7,7 +7,7 @@ MUSIC with the noise projector replaced by R⁻¹:
     P(theta) = 1 / Re(a^H R⁻¹ a)
 
 R⁻¹ via batched Cholesky solve (R is Hermitian PSD + diagonal loading),
-then the identical two-matmul MXU quadratic-form scan.
+then the identical two-matmul quadratic-form scan.
 """
 
 from __future__ import annotations

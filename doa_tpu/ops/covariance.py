@@ -5,7 +5,7 @@ The reference consumes N coherent streams and, per output item, forms a
 (R_ij = (1/S) Σ_s x_si conj(x_sj)), with `overlap_size`
 sliding windows and optional forward-backward averaging. Here the stream
 becomes an array `x: c64[T, N]` and ALL windows are produced at once as
-`R: c64[B, N, N]` — one batched Gram matmul on the MXU instead of a
+`R: c64[B, N, N]` — one batched Gram matmul instead of a
 per-item hot loop.
 
 Two formulations:

@@ -1,8 +1,7 @@
 """Real-valued (split re/im) implementations of the core DoA ops.
 
-This is the TPU compute path: everything below runs with NO complex dtype
-anywhere — required for Pallas TPU kernels and for complex-free backends,
-and faster on the MXU (Gauss 3-matmul complex products, §doa_tpu.cpx).
+This is the production compute path: everything below runs with NO
+complex dtype anywhere (Gauss 3-matmul complex products, §doa_tpu.cpx).
 Parity is tested against the jnp-complex reference ops.
 
 Math notes:
@@ -53,7 +52,7 @@ def chunk_grams_cpx(x: Cpx, hop: int) -> Cpx:
     the associative partial sums that sliding windows / psum combine.
 
     Stacked-plane trick: with Z = [Xr | Xi] (hop, 2N), one Gram ZᵀZ yields
-    all four real blocks — a single (2N×hop)·(hop×2N) MXU matmul per chunk
+    all four real blocks — a single (2N×hop)·(hop×2N) matmul per chunk
     instead of four N×N ones:
         ZᵀZ = [[XrᵀXr, XrᵀXi], [XiᵀXr, XiᵀXi]];
         Rr = TL + BR,  Ri = BL − TR.
@@ -72,53 +71,41 @@ def chunk_grams_cpx(x: Cpx, hop: int) -> Cpx:
     return Cpx(TL + BR, BL - TR)
 
 
-def cov_from_stream_cpx(x: Cpx, snapshot_size: int, overlap: int,
-                        fb_average: bool = False, impl: str = "xla",
-                        cov_dtype=jnp.float32,
-                        interpret: bool = False) -> Cpx:
-    """x: Cpx[T, N] → R: Cpx[B, N, N]; zero-copy overlap via sliding sums
-    of chunk Grams (hop must divide snapshot_size on this path; any
-    overlap is served by ops.pallas.cov_windows_pallas or the complex
-    reference path).
+def window_sums(C, n_win: int, stride: int, B: int):
+    """Sliding-window sums of per-chunk partial sums C[n, ...]: window b
+    sums chunks [b·stride, b·stride + n_win) → [B, ...]. A strided
+    reduce-window, exact in its summation order (no prefix-sum
+    differences, whose f32 cancellation grows with the capture length)."""
+    if n_win == 1 and stride == 1:
+        return C[:B]
+    dims = (n_win,) + (1,) * (C.ndim - 1)
+    strides = (stride,) + (1,) * (C.ndim - 1)
+    W = jax.lax.reduce_window(C, np.array(0, C.dtype), jax.lax.add,
+                              dims, strides, "VALID")
+    return W[:B]
 
-    impl="pallas": chunk Grams from the Pallas kernel — reads the planes
-    once (VMEM stacking) instead of materializing the stacked copy in
-    HBM, and supports bf16 Gram inputs (`cov_dtype`) for 4× MXU rate.
-    impl="xla": pure-XLA stacked-Gram einsum (any backend).
+
+def cov_from_stream_cpx(x: Cpx, snapshot_size: int, overlap: int,
+                        fb_average: bool = False) -> Cpx:
+    """x: Cpx[T, N] → R: Cpx[B, N, N] without materializing frames:
+    sliding sums of chunk Grams.
 
     Irregular overlap (hop ∤ S) is served by gcd-granularity chunks:
     windows start at hop-multiples and span S samples, both multiples
-    of g = gcd(S, hop), so strided prefix-sum differences reproduce the
+    of g = gcd(S, hop), so strided window sums reproduce the
     reference's sliding windows exactly for ANY 0 ≤ overlap < S. Tiny
-    gcds (e.g. g=4) trade MXU efficiency for generality — prefer
-    hop | S operating points for throughput."""
+    gcds (e.g. g=4) mean many small Grams — prefer hop | S operating
+    points for throughput."""
     import math
 
     S = snapshot_size
     hop = S - overlap
     T, N = x.shape
     g = math.gcd(S, hop)
-    if impl == "pallas":
-        from doa_tpu.ops.pallas.covariance import chunk_grams_pallas
-        C = chunk_grams_pallas(x, g, compute_dtype=cov_dtype,
-                               interpret=interpret)
-    else:
-        C = chunk_grams_cpx(x, g)
-    n_win = S // g
-    stride = hop // g
+    C = chunk_grams_cpx(x, g)
     B = 0 if T < S else (T - S) // hop + 1
-
-    def win(plane):
-        if n_win == 1:                      # no overlap: chunk == window
-            return plane[:B] / S
-        csum = jnp.concatenate(
-            [jnp.zeros((1, N, N), plane.dtype), jnp.cumsum(plane, axis=0)],
-            axis=0)
-        lo = csum[0:(B - 1) * stride + 1:stride]
-        hi = csum[n_win:n_win + (B - 1) * stride + 1:stride]
-        return (hi - lo) / S
-
-    R = Cpx(win(C.re), win(C.im))
+    R = Cpx(window_sums(C.re, S // g, hop // g, B) / S,
+            window_sums(C.im, S // g, hop // g, B) / S)
     if fb_average:
         R = forward_backward_cpx(R)
     return R
@@ -189,14 +176,13 @@ def signal_subspace_embedded(R: Cpx, num_sources: int, iters: int = 8,
     (power) iteration: (B, 2N, 2K) f32.
 
     MUSIC/root-MUSIC only need the K-dimensional signal subspace, not the
-    full spectrum — LAPACK-style eigh of every snapshot matrix is the
-    workload's bottleneck (measured 70+ ms per 1024-snapshot batch on a
-    v5e vs ~2 ms for this). Pure batched-matmul subspace iteration:
+    full spectrum — LAPACK-style eigh of every snapshot matrix is far
+    slower than this pure batched-matmul subspace iteration:
 
         V ← orthonormalize(E^(2^squarings) @ V),  V₀ = leading columns
 
     with Newton-Schulz orthonormalization (coupled iteration for G^{-1/2},
-    no Cholesky/QR — everything stays on the MXU). Convergence is
+    no Cholesky/QR — everything is batched matmuls). Convergence is
     (λ_{K+1}/λ_K)^iters: covariance averaging over S≥256 snapshots puts
     signal eigenvalues well above noise even at 0 dB SNR, so 8 effective
     iterations reach projector accuracy beyond the estimators' noise
@@ -224,7 +210,7 @@ def signal_subspace_from_E(E, num_sources: int, iters: int = 8,
                            escalate_capacity: int = 1024,
                            return_stats: bool = False):
     """As signal_subspace_embedded but from pre-embedded E: f32[B,2N,2N]
-    (e.g. the fused covariance kernel's output)."""
+    (e.g. ops.interleaved.cov_embedded's output)."""
     out = signal_subspace_from_E_T(E, num_sources, iters=iters,
                                    ns_iters=ns_iters,
                                    squarings=squarings,
@@ -351,9 +337,8 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
                       escalate_signal_floor: float = 2.5,
                       escalate_capacity: int = 1024,
                       return_stats: bool = False):
-    """MGS-orthonormalized subspace iteration (the r2-s4 measured
-    winner): 5.8 ms vs 20.7 (NS e1@8) / 9.6 (NS e4@8) at the headline
-    shape, AND robust — planted-spectrum bad-rate 0 through eigenvalue
+    """MGS-orthonormalized subspace iteration: cheaper than the NS
+    chain (one dot+axpy chain over (B, 2N) rows) AND robust — planted-spectrum bad-rate 0 through eigenvalue
     spread 10⁴ at squarings=0 (the NS schedule's envelope was ≲20), so
     the speed-vs-imbalance power-schedule dial collapses: e1 is both
     the fastest and the most robust schedule under MGS. squarings > 0
@@ -401,12 +386,11 @@ def _subspace_E_T_mgs(E, num_sources: int, iters: int, squarings: int,
     else:
         # e1: MGS is scale-invariant, so iterate on RAW E — the E/tr
         # materialization costs a full read+write pass over the window
-        # stack (2×2.1 GB ≈ 8.6 ms at the c5 shape) for nothing. Only
-        # the detector's Rayleighs need the normalization, applied to
-        # the tiny (B, 2K) lam tensor (escalation_detector(scale=)).
-        # (r3's attempt at this folded the division into the apply
-        # einsums and hit a 15-min compile pathology; consuming E
-        # UNMODIFIED avoids it — re-measured r4, docs/PERF.md.)
+        # stack for nothing. Only the detector's Rayleighs need the
+        # normalization, applied to the tiny (B, 2K) lam tensor
+        # (escalation_detector(scale=)). Folding the division into the
+        # apply einsums instead once hit a pathological compile time;
+        # consuming E UNMODIFIED avoids it.
         Ep = E
         scale = jnp.maximum(tr, 1e-30)
     if init is not None:
@@ -467,12 +451,10 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
     """Embedded signal subspace in TRANSPOSED layout: Vt f32[B, 2K, 2N]
     with Vt·Vtᵀ = I — the production fast form.
 
-    orth="mgs" (default, r2-s4): per-round modified Gram-Schmidt —
-    measured 3.6× faster than the packed-NS chain AND robust at any
-    source power imbalance (see _subspace_E_T_mgs); "ns" keeps the
-    packed Newton-Schulz chain (the r2-s3 production path) for
-    comparison. Everything below this docstring describes the NS
-    variant. Two TPU-shaping facts:
+    orth="mgs" (default): per-round modified Gram-Schmidt — cheaper
+    than the packed-NS chain AND robust at any source power imbalance
+    (see _subspace_E_T_mgs); "ns" keeps the packed Newton-Schulz chain
+    for comparison. Everything below this describes the NS variant:
 
     * **Repeated squaring, schedule-selectable.** `squarings` batched
       full-width squaring passes build Ep = E^(2^squarings); each round
@@ -487,17 +469,12 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
         squarings=1 (E²): spread ≲ 30  — the production default: covers
                           source power imbalances to ~30 dB (measured:
                           E⁴ silently LOSES a −10 dB source; E² holds
-                          to −30 dB, and is faster at matched effective
-                          iteration counts — 12.4 vs 13.6 ms at
-                          B=16384, exp r2: planted-spectrum sweep)
+                          to −30 dB)
         squarings=0 (E¹): spread ≲ 10³ — the guard-free fallback.
       Beyond the envelope the subspace guard (guarded_signal_subspace)
       catches and eigh-repairs affected windows.
     * **Transposed V.** Iterating Vt (minor dim 2N) instead of V (minor
-      dim 2K) keeps every intermediate 4×-padded rather than 32×-padded
-      ((B, 2N, 2K) tiles pad the 2K minor to 128 lanes), and
-      Vt.reshape(B·2K, 2N) IS the lane-packed layout the fused MUSIC
-      scan kernel consumes — the packing relayout disappears.
+      dim 2K) keeps the wide axis minor in every intermediate.
 
     Orthonormalization = Jacobi-preconditioned Newton-Schulz on the
     Gram: G̃ = D^{-1/2}GD^{-1/2} removes the column-norm spread (∝ λ⁴
@@ -511,11 +488,10 @@ def signal_subspace_from_E_T(E, num_sources: int, iters: int = 8,
     Vt as block rows gives one (B/4, 4·2K, 4·2K) Gram; masking it to
     block-diagonal makes every NS product EXACTLY block-diagonal
     (block-diagonal algebra is closed), so the chain computes the same
-    per-window result with half the HBM traffic — a (B, 2K, 2K) tensor
-    pads its 2K minor to 128 lanes (32×), the packed form only 8×.
-    Matmul precision note: the chain must run at ≥ tensorfloat32
-    (bf16×3) — single-pass-bf16 Grams make the iteration converge to
-    wrong subspaces on structured signals (docs/PERF.md)."""
+    per-window result on wider matmuls. Matmul precision note: the
+    chain must run near f32 (cpx.MATMUL_PRECISION) — single-pass
+    low-precision Grams make the iteration converge to wrong subspaces
+    on structured signals (PERF.md "Precision")."""
     if orth == "mgs":
         return _subspace_E_T_mgs(E, num_sources, iters, squarings,
                                  init=init,
@@ -712,9 +688,9 @@ def music_denominator_subspace(V_emb, A: Cpx, compute_dtype=jnp.float32):
     Scan cost B·G·2N·2K vs the projector form's 3·B·G·N² — an N/K-fold
     saving on top of skipping the full eigh.
 
-    compute_dtype: float32 | bfloat16 (2× MXU rate, the production fast
+    compute_dtype: float32 | bfloat16 (2× matmul rate, the production fast
     mode — the modern analog of the reference fork's 16-bit fixed-point
-    Connex scan) | int8 (4× MXU rate, COARSE mode: symmetric scale-127
+    Connex scan) | int8 (4× matmul rate, COARSE mode: symmetric scale-127
     quantization adds ~0.1 absolute noise to the denominator, which fills
     in the deep MUSIC nulls — peak neighborhoods survive but sub-degree
     null structure does not; use for a coarse first pass, then rescan a
@@ -754,11 +730,11 @@ def principal_eigvec_cpx(R: Cpx) -> Cpx:
 def music_denominator_cpx(M: Cpx, A: Cpx, compute_dtype=jnp.float32):
     """den[b,g] = Re(a_g^H M_b a_g) = arᵀMr ar + aiᵀMr ai + 2·aiᵀMi ar.
 
-    Shapes: M (B, N, N), A (G, N) → (B, G). Three (G,N)·(N,N) MXU matmuls
-    per snapshot — the exact shape the Pallas scan kernel implements.
+    Shapes: M (B, N, N), A (G, N) → (B, G). Three (G,N)·(N,N) matmuls
+    per snapshot.
 
     compute_dtype=bfloat16 runs the matmul inputs in bf16 with f32
-    accumulation — double MXU rate; the modern analog of the reference
+    accumulation — double matmul rate; the modern analog of the reference
     fork's 16-bit fixed-point accelerator scan (SURVEY §2.2 F1). |a|=1 and
     ‖M‖₂=1 (projector), so inputs are naturally in bf16's sweet range.
     """
@@ -792,7 +768,7 @@ def bartlett_spectrum_cpx(R: Cpx, A: Cpx, normalize: bool = True):
     """Real-path Bartlett (conventional beamformer): P = ãᵀ E(R) ã
     = Re(aᴴ R a) on the 2N embedding.
 
-    Layout: ONE flattened MXU matmul — E reshaped (B, 4N²) against the
+    Layout: ONE flattened matmul — E reshaped (B, 4N²) against the
     grid's outer-product table K[nm, g] = ã_n ã_m (4N² × G, ~16 MB at
     N=16/G=1024; XLA hoists it as a per-config constant). No (B, 2N, G)
     intermediate ever materializes. Precision: the ambient pipeline
@@ -814,9 +790,7 @@ def capon_spectrum_cpx(R: Cpx, A: Cpx, diag_load: float = 1e-4,
     """Real-path Capon-MVDR: den = ãᵀ E(R)⁻¹ ã on the 2N real embedding.
 
     method="cholesky" (default): batched Cholesky + triangular solve,
-    den = ‖L⁻¹ã‖². Measured on v5e (B=8192, N=16 → 32×32 embeddings):
-    58 ms vs 168 ms for the Newton-Schulz inverse — unlike QR-eigh,
-    XLA's batched Cholesky maps well to TPU, so the exact solve wins.
+    den = ‖L⁻¹ã‖² — XLA's batched Cholesky is the exact solve.
     method="newton": matmul-only Newton-Schulz inverse X ← X(2I − EX);
     kept for backends/shapes where Cholesky lowers poorly. Diagonal
     loading bounds cond(E), so `newton_iters=24` reaches f32 accuracy.

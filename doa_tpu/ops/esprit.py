@@ -2,7 +2,7 @@
 
 Beyond the reference (which ships MUSIC/root-MUSIC only) — rounds out the
 subspace-estimator family. Fully batched, complex-free-backend safe, and
-eig-free (JAX has no TPU `eig`):
+eig-free (JAX lowers `eig` only on the CPU):
 
   1. complex signal subspace E_s: Cpx[B, N, K] by power iteration in
      split-complex arithmetic (Newton-Schulz orthonormalization of the
@@ -149,7 +149,7 @@ def esprit_cpx(R: Cpx, num_sources: int, norm_spacing: float,
 
 def _eig_small_cpx(Psi: Cpx, root_iters: int = 40):
     """Eigenvalues AND eigenvectors of a small (K ≤ 4) batched complex
-    matrix, eig-free (no TPU `eig` exists):
+    matrix, eig-free (JAX lowers `eig` only on the CPU):
 
       * eigenvalues: characteristic polynomial (Faddeev-LeVerrier)
         rooted with the batched Aberth-Ehrlich iterator;
@@ -248,8 +248,8 @@ def esprit_2d_cpx(R: Cpx, num_sources: int, norm_spacing: float,
 
 
 # ---------------------------------------------------------------------
-# Unitary (real-valued) ESPRIT — Haardt–Nossek. The most TPU-native
-# member of the family: after one complex→real transform, EVERYTHING
+# Unitary (real-valued) ESPRIT — Haardt–Nossek. The most matmul-
+# friendly member of the family: after one complex→real transform, EVERYTHING
 # (subspace iteration, LS invariance, eigenvalues) is real arithmetic —
 # half the matmul planes of complex ESPRIT — and forward-backward
 # averaging is IMPLICIT in the transform (one coherent pair
@@ -306,9 +306,11 @@ def unitary_esprit_cpx(R: Cpx, num_sources: int, norm_spacing: float,
     eigenvalues via char-poly + Aberth (real parts — exactly real in
     the noiseless model); μ = −2·arctan(ω), θ = acos(μ/(2πd)).
 
-    Matmul precision pinned locally (tensorfloat32) so the op holds up
-    standalone, outside the pipelines' f32_matmuls scope."""
+    Traces under the pipelines' matmul precision (cpx.MATMUL_PRECISION)
+    even when called standalone."""
     import numpy as np
+
+    from doa_tpu import cpx
 
     N = R.shape[-1]
     K = num_sources
@@ -322,7 +324,7 @@ def unitary_esprit_cpx(R: Cpx, num_sources: int, norm_spacing: float,
     Qr = jnp.asarray(QN.real.astype(np.float32))
     Qi = jnp.asarray(QN.imag.astype(np.float32))
 
-    with jax.default_matmul_precision("tensorfloat32"):
+    with jax.default_matmul_precision(cpx.MATMUL_PRECISION):
         # C = Re(Qᴴ R Q) = Qrᵀ(Rr Qr − Ri Qi) + Qiᵀ(Ri Qr + Rr Qi)
         rmm = lambda a, b: jnp.einsum(  # noqa: E731
             "bij,jk->bik", a, b, preferred_element_type=jnp.float32)

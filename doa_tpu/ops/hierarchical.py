@@ -13,7 +13,7 @@ parabolic minimum of the locally-quadratic denominator.
 Cost: coarse B·G_c·2N·2K + refine B·k·W·2N·2K, vs dense B·G_fine·2N·2K.
 At 0.01° effective resolution with G_c = 256, W = 64: ~50× fewer scan
 flops than the equivalent dense grid. No reference analog (upstream
-scans one fixed grid); this is the TPU-native superresolution path.
+scans one fixed grid); this is the on-device superresolution path.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Batched symmetric eigendecomposition via MXU-native parallel Jacobi.
+"""Batched symmetric eigendecomposition via matmul-only parallel Jacobi.
 
 Why: the covariance matrices here are small (embedded size 2N = 8..128)
 but come in large batches (one per snapshot window). LAPACK-style
@@ -11,13 +11,13 @@ hard part 1). Parallel-ordered cyclic Jacobi instead:
     Q_round = Σ_k [c_k (E_pp + E_qq) + s_k (E_pq − E_qp)]
     built from static one-hot bases (round-robin tournament schedule);
   * the update A ← Qᵀ A Q and accumulation V ← V Q are batched n×n
-    matmuls — 100% MXU work, no scatters, no per-pair control flow;
+    matmuls — all matrix-unit work, no scatters, no per-pair control flow;
   * sweeps have quadratic convergence; `sweeps=10` reaches f32
     machine-precision off-diagonals for n ≤ 128.
 
 Everything is real f32 — used on the 2N real embedding of Hermitian
-matrices (doa_tpu.cpx.embed_hermitian), so it runs on complex-free
-backends and inside Pallas-adjacent code paths.
+matrices (doa_tpu.cpx.embed_hermitian), so it runs on the split-complex
+path with no complex dtype.
 """
 
 from __future__ import annotations

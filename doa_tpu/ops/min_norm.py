@@ -16,10 +16,10 @@ makes the rooted form (`root_min_norm`) well separated, and the spectral
 scan is O(B·G·N) — N/(2K)× cheaper than even the signal-subspace MUSIC
 scan, since the whole subspace collapses into ONE vector per window.
 
-TPU formulation: w comes from the embedded signal basis V (B, 2N, 2K)
+Split-complex formulation: w comes from the embedded signal basis V (B, 2N, 2K)
 of the power/subspace iteration with two tiny batched contractions (no
 eigh, no N×N projector): Pn ẽ1 = ẽ1 − V (Vᵀ ẽ1) where Vᵀẽ1 is just
-row 0 of V. The scan is two (B, 2N)·(2N, G) MXU matmuls (the real and
+row 0 of V. The scan is two (B, 2N)·(2N, G) matmuls (the real and
 imaginary parts of aᴴw via the J-embedding), vs MUSIC's (B·2K, 2N)·
 (2N, G).
 """
@@ -83,7 +83,7 @@ def root_min_norm(R, num_sources: int, norm_spacing: float,
 
 
 # ---------------------------------------------------------------------
-# Split-complex path (TPU pipeline — no complex dtype anywhere)
+# Split-complex path (production pipeline — no complex dtype anywhere)
 # ---------------------------------------------------------------------
 
 def min_norm_weight_from_signal(V_emb):

@@ -3,14 +3,13 @@
 P(theta) = 1 / ||E_n^H a(theta)||², scanned over a precomputed steering
 matrix A: (G, N), batched over snapshots: P: f32[B, G].
 
-TPU formulation: form the Hermitian noise projector M = E_n E_n^H once per
+Formulation: form the Hermitian noise projector M = E_n E_n^H once per
 snapshot (O(N³), tiny) and evaluate the quadratic form
     den[b, g] = a_g^H M_b a_g = Σ_ij conj(A)[g,i] M[b,i,j] A[g,j]
-as two MXU matmuls: T = conj(A) @ M  (G×N · N×N), then row-dot with A.
-This keeps the scan's inner shapes (G, N)×(N, N) — MXU-friendly for large G
-regardless of how many sources K there are, and it is the exact shape the
-Pallas bf16 scan kernel implements (the fork's Connex fixed-point scan
-precedent, SURVEY §2.2 F1).
+as two matmuls: T = conj(A) @ M  (G×N · N×N), then row-dot with A.
+This keeps the scan's inner shapes (G, N)×(N, N) — matmul-shaped for large G
+regardless of how many sources K there are (a bf16 scan follows the
+fork's Connex fixed-point scan precedent, SURVEY §2.2 F1).
 """
 
 from __future__ import annotations

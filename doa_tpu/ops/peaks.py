@@ -21,9 +21,9 @@ def _topk_lastaxis(masked, k: int):
     """top-k along the last axis: (vals, idx) each (B, k).
 
     For the small k of peak extraction (1–4) this runs k argmax+mask
-    rounds — plain VPU reductions — instead of `lax.top_k`, which lowers
-    to a full variadic sort on TPU (measured: the sort dominated the
-    whole peaks stage). Falls back to top_k for larger k.
+    rounds — plain reductions — instead of `lax.top_k`, which may lower
+    to a full variadic sort (whether top_k is cheaper on the GPU is
+    ROADMAP design debt 4). Falls back to top_k for larger k.
     """
     if k > 4:
         return jax.lax.top_k(masked, k)

@@ -2,8 +2,8 @@
 SURVEY §2.1 C3).
 
 The reference roots the noise-subspace polynomial with Armadillo's
-companion-matrix eigensolver — a non-Hermitian eig that has NO TPU lowering
-in JAX (SURVEY §7.3 hard part 2). Instead the polynomial is rooted on-device
+companion-matrix eigensolver — a non-Hermitian eig that JAX lowers
+only on the CPU (SURVEY §7.3 hard part 2). Instead the polynomial is rooted on-device
 with a batched Aberth-Ehrlich simultaneous-root iteration in pure jnp:
 fixed iteration count (jit-static), all-root parallel updates, vectorized
 over the snapshot batch. Converges super-linearly for the well-separated
@@ -104,7 +104,7 @@ def root_music(R, num_sources: int, norm_spacing: float,
 
 
 # ---------------------------------------------------------------------
-# Split-complex (Cpx) variant — the complex-free TPU path. Same math,
+# Split-complex (Cpx) variant — the production pipeline's path. Same math,
 # Aberth-Ehrlich carried on (re, im) planes.
 # ---------------------------------------------------------------------
 

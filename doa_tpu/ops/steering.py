@@ -11,8 +11,8 @@ module. Conventions (pinned by tests/golden.py):
   * a(theta)_k = exp(-1j * 2π * d * k * cos(theta)).
 
 Steering matrices are precomputed constants for a config (closed over by the
-jitted pipeline) — XLA hoists them; they live in HBM and stream to the MXU
-during the spectrum scan.
+jitted pipeline) — XLA hoists them; they live in device memory and stream
+through the spectrum scan.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ Replaces the reference's per-item `arma::eig_sym` calls inside
 MUSIC_lin_array / rootMUSIC / calibrate_lin_array work() loops
 (SURVEY §2.1 C2-C4) with one batched eigh over the whole snapshot batch.
 
-On TPU, complex Hermitian eigh is latency-bound for small N (4..64); the
+On an accelerator, complex Hermitian eigh is latency-bound for small N (4..64); the
 batch axis B amortizes it (SURVEY §7.3 hard part 1). `jnp.linalg.eigh` is
 the default; `eigh_batched` is the single switch point where a custom
-batched-Jacobi Pallas kernel can be slotted in if profiling shows eigh
+batched-Jacobi kernel can be slotted in if profiling shows eigh
 dominating.
 """
 

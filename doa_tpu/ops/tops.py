@@ -43,11 +43,10 @@ where v = â_rᴴ S_r (per-θ row, f-independent: â_fᴴΦ_f = â_rᴴ because
 the phasors cancel) and C_f = S_fᴴU_f − (S_fᴴâ_f)(â_fᴴU_f). Everything
 is K² statically-unrolled (G, N)@(N, B) matmuls + elementwise (G, B)
 ops per band inside one lax.scan over subbands — a (K, K, G, B)
-accumulator (tiny K axes LEADING so the TPU
-tile padding of the two minor dims never multiplies the working set —
-measured 64× at K=2 the other way), no per-angle control flow, no
-(F, G, B, N) intermediates. λ_min is closed-form for K ≤ 2 (pure
-elementwise VPU math) and falls back to the batched MXU Jacobi rotor
+accumulator (tiny K axes LEADING, the large (G, B) axes minor), no
+per-angle control flow, no (F, G, B, N) intermediates. λ_min is
+closed-form for K ≤ 2 (pure elementwise math) and falls back to the
+batched matmul Jacobi rotor
 on the 2K×2K real Hermitian embedding (ops/jacobi.py) for K > 2, so
 the whole estimator is complex-free-backend safe and eig-free.
 """
@@ -66,11 +65,9 @@ def tops_leakage_row(A_ref: Cpx, S_ref: Cpx) -> Cpx:
     leakage row (â_fᴴΦ_f = â_rᴴ: the unit phasors cancel). A_ref:
     (G, N) UNNORMALIZED reference steering; S_ref: (B, N, K).
 
-    Layout note (measured, r5): every TOPS tensor keeps the tiny K
-    axes LEADING and the large (G, B) axes minor. TPU tiles pad the
-    two minor dims to (8, 128); a (G, B, K, K) layout at K=2 pads
-    64× — the accumulate+finalize stages ran 178+660 ms at
-    (361, 2048) — while (K, K, G, B) is pad-free."""
+    Layout note: every TOPS tensor keeps the tiny K axes LEADING and
+    the large (G, B) axes minor, so each elementwise op runs over
+    contiguous (G, B) planes."""
     inv_sqrt_n = 1.0 / (A_ref.shape[-1] ** 0.5)
     return cpx_einsum("gn,bnl->lgb", A_ref.conj() * inv_sqrt_n, S_ref)
 
@@ -91,13 +88,11 @@ def tops_accumulate_cc(S_bands: Cpx, A_bands: Cpx, A_ref: Cpx,
     G = A_bands.shape[1]
     inv_sqrt_n = 1.0 / (N ** 0.5)
     A_ref_c = A_ref.conj()
-    # Static-K unroll (measured, r5): K is tiny (1-4). Expressing the
-    # per-band work as batched einsums over a (G·B)-sized batch of
-    # K-dimensional matrices puts 740k micro-dots per band on the MXU
-    # issue path (the repo's measurement lesson 2 — the accumulate
-    # stage ran 175 ms at (361, 2048)). Unrolled, each (k, l) pair is
-    # ONE full (G, N)@(N, B) matmul plus elementwise (G, B) ops —
-    # K²+K matmuls per band, all MXU-shaped.
+    # Static-K unroll: K is tiny (1-4). Expressing the per-band work as
+    # batched einsums over a (G·B)-sized batch of K-dimensional
+    # matrices issues ~G·B micro-dots per band. Unrolled, each (k, l)
+    # pair is ONE full (G, N)@(N, B) matmul plus elementwise (G, B)
+    # ops — K²+K large matmuls per band.
     S_ref_cols = [Cpx(S_ref.re[..., c], S_ref.im[..., c])
                   for c in range(K)]                     # (B, N) each
     v_cols = [Cpx(v.re[c], v.im[c]) for c in range(K)]   # (G, B) each
@@ -154,10 +149,9 @@ def tops_finalize(ccr, cci, v: Cpx, num_bands: int,
     band count F) → max-normalized TOPS spectrum f32[B, G]:
     M = (F−1)·(I − vᴴv) − ΣCᴴC, P = 1/λ_min(M).
 
-    λ_min: closed form for K ≤ 2 (pure elementwise VPU math on (G, B)
-    planes — measured 660 → ~2 ms at (361, 2048) vs the batched
-    Jacobi on 740k padded 4×4 embeddings); embedded Jacobi rotor for
-    K > 2.
+    λ_min: closed form for K ≤ 2 (pure elementwise math on (G, B)
+    planes, instead of a batched Jacobi on G·B 4×4 embeddings);
+    embedded Jacobi rotor for K > 2.
 
     guard: optional incoherent-MUSIC sum f32[G, B] (from
     tops_accumulate_cc). When given, the returned spectrum is the
@@ -229,11 +223,8 @@ def tops_spectrum_cpx(S_sub: Cpx, A_stack: Cpx, ref_band: int = 0,
                          guard=mus if guard else None)
 
 
-def wideband_tops_cpx(x: Cpx | None, A_stack: Cpx, W: Cpx | None, cfg,
-                      E_sub=None):
-    """Stream-level TOPS: x Cpx[T, N] (or pre-embedded subband windows
-    E_sub f32[F, B, 2N, 2N] from the Pallas wideband front-end) →
-    f32[B, G]. Mirrors wideband_music_cpx's calling convention so the
+def wideband_tops_cpx(x: Cpx, A_stack: Cpx, W: Cpx, cfg):
+    """Stream-level TOPS: x Cpx[T, N] → f32[B, G]. Mirrors wideband_music_cpx's calling convention so the
     pipeline dispatch is symmetric across fusion modes.
 
     Working-set note: the scan accumulators are (K, K, G, B)+(G, B)
@@ -241,12 +232,10 @@ def wideband_tops_cpx(x: Cpx | None, A_stack: Cpx, W: Cpx | None, cfg,
     G=361, B=2048, K=2; ≈ 5.4 GB at the c5 2-D grid G=16471). For
     large G·B configs feed the pipeline smaller window blocks (the
     streaming drivers already do) rather than one huge capture."""
-    from doa_tpu.cpx import unembed_hermitian
     from doa_tpu.ops.esprit import signal_subspace_cpx
     from doa_tpu.ops.wideband import subband_covariances
 
-    R_sub = (unembed_hermitian(E_sub) if E_sub is not None
-             else subband_covariances(x, W, cfg))        # (F, B, N, N)
+    R_sub = subband_covariances(x, W, cfg)               # (F, B, N, N)
     F, B, N, _ = R_sub.shape
     K = cfg.num_sources
     S = signal_subspace_cpx(R_sub.reshape(F * B, N, N), K,

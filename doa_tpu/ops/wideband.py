@@ -7,8 +7,8 @@ per-subband covariance + MUSIC with a subband-scaled steering grid →
 incoherent fusion (mean of max-normalized subband spectra).
 
 The DFT runs as a planar complex matmul with the (F, F) DFT matrix —
-complex-free (works on Pallas / complex-free backends) and MXU-shaped for
-small F, which is exactly the subband-count regime (8–64) here.
+complex-free and matmul-shaped for small F, which is exactly the
+subband-count regime (8–64) here.
 
 Steering vs frequency: with array spacing d = norm_spacing wavelengths AT
 THE CARRIER, a subband at baseband offset f_norm ∈ [-.5, .5) (fraction of
@@ -114,8 +114,8 @@ def subband_subspaces(R: Cpx, cfg: DoaConfig, Ebar=None):
 
 
 def subband_subspaces_from_E(E_sub, cfg: DoaConfig, Ebar=None):
-    """Pre-embedded per-subband covariances f32[F, B, 2N, 2N] (the
-    wideband Pallas front-end's output) → signal subspaces
+    """Pre-embedded per-subband covariances f32[F, B, 2N, 2N] → signal
+    subspaces
     f32[F, B, 2N, 2K]. Merges the (F, B) axes so the subspace
     iteration runs one large batch instead of a vmap over subbands.
 
@@ -138,11 +138,6 @@ def subband_subspaces_from_E(E_sub, cfg: DoaConfig, Ebar=None):
             Ebar, cfg.num_sources,
             iters=max(cfg.power_iters, 8),
             **esc)                                   # (F, 2K, 2N)
-        # (The r3 fused warm-refine Pallas kernel was removed in r4:
-        # it cannot compile at this path's design shape 2N=128 on this
-        # Mosaic toolchain, and the einsum refinement below measures
-        # 20.7 ms standalone at c5 — 1.2× its E-read floor.
-        # Post-mortem: docs/PERF.md "warm-refine fusion experiments".)
         init = jnp.broadcast_to(
             Vt_bar[:, None], (F, B, K2, n2)).reshape(F * B, K2, n2)
         Vt = cpx_ops.signal_subspace_from_E_T(
@@ -156,16 +151,12 @@ def subband_subspaces_from_E(E_sub, cfg: DoaConfig, Ebar=None):
     return V.reshape(F, B, n2, 2 * cfg.num_sources)
 
 
-def _subband_spectra(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig,
-                     E_sub=None):
+def _subband_spectra(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig):
     """→ (P_sub f32[F, B, G] max-normalized per subband,
-          V f32[F, B, 2N, 2K] | None).
-
-    E_sub: optional pre-embedded per-subband covariance windows from
-    the Pallas wideband front-end (x/W unused then)."""
+          V f32[F, B, 2N, 2K] | None)."""
+    R = subband_covariances(x, W, cfg)
     if cfg.subspace_method == "power":
-        V = (subband_subspaces_from_E(E_sub, cfg) if E_sub is not None
-             else subband_subspaces(subband_covariances(x, W, cfg), cfg))
+        V = subband_subspaces(R, cfg)
 
         def spec_one(v, Af):
             den = jnp.maximum(
@@ -176,9 +167,6 @@ def _subband_spectra(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig,
             return P / jnp.max(P, axis=-1, keepdims=True)
 
         return jax.vmap(spec_one)(V, A_stack), V
-    from doa_tpu.cpx import unembed_hermitian
-    R = (unembed_hermitian(E_sub) if E_sub is not None
-         else subband_covariances(x, W, cfg))
     M_proj = jax.vmap(
         lambda r: cpx_ops.noise_projector_cpx(r, cfg.num_sources))(R)
 
@@ -191,83 +179,46 @@ def _subband_spectra(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig,
     return jax.vmap(spec_one)(M_proj, A_stack), None
 
 
-def _wb_fusion_resolved(cfg: DoaConfig) -> str:
-    """wb_fusion_impl resolution: the fused Pallas kernel applies on
-    the power path at full (tf32-class) scan precision only. "auto"
-    resolves to the kernel on TPU backends (measured r5: c5 57.4 →
-    54.0 ms median-of-3, exact parity — docs/PERF.md) and to the XLA
-    scan on CPU (the interpreter would crawl; tests opt in
-    explicitly)."""
-    impl = getattr(cfg, "wb_fusion_impl", "auto")
-    if cfg.subspace_method != "power" or cfg.compute_dtype != "float32":
-        return "xla"
-    if impl == "auto":
-        return ("pallas" if jax.default_backend() != "cpu" else "xla")
-    return impl
-
-
-def wideband_music_cpx(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig,
-                       E_sub=None):
+def wideband_music_cpx(x: Cpx, A_stack: Cpx, W: Cpx, cfg: DoaConfig):
     """x: Cpx[T, N], A_stack: Cpx[F, G, N], W: DFT Cpx[F, F] →
     fused spectrum f32[B, G] (mean of max-normalized subband spectra).
-
-    E_sub: optional pre-embedded per-subband covariances (f32[F, B,
-    2N, 2N]) from the Pallas wideband front-end — x and W are unused
-    then (the fast interleaved-ingest path, ops.pallas.wideband_cov).
 
     The fusion accumulates with a lax.scan over subbands instead of
     materializing the (F, B, G) per-subband spectrum stack — at the c5
     production shape that stack is 2.2 GB (× passes), the single
     largest wideband intermediate; the scan's live set is one (B, G)
     accumulator + one subband's intermediates."""
-    R = None
-    if E_sub is None:
-        R = subband_covariances(x, W, cfg)           # (F, B, N, N)
-    B = (E_sub if R is None else R.re).shape[1]
-    G = A_stack.shape[1]
-
+    R = subband_covariances(x, W, cfg)               # (F, B, N, N)
     if cfg.subspace_method == "power":
-        V = (subband_subspaces_from_E(E_sub, cfg) if R is None
-             else subband_subspaces(R, cfg))         # (F, B, 2N, 2K)
+        return fuse_subband_music(subband_subspaces(R, cfg), A_stack,
+                                  cfg)                # V (F, B, 2N, 2K)
+    return fuse_subband_music(jax.vmap(lambda r: cpx_ops.noise_projector_cpx(
+        r, cfg.num_sources))(R), A_stack, cfg)        # M Cpx[F, B, N, N]
 
-        if _wb_fusion_resolved(cfg) == "pallas":
-            # Fused two-pass kernel: den never leaves VMEM (the XLA
-            # scan's ~675 MB/subband of den/spectrum/acc round-trips
-            # are the stage's measured cost — docs/PERF.md c5 split).
-            from doa_tpu.ops.pallas.wideband_scan import (
-                wideband_fused_spectrum_pallas)
-            At = jnp.concatenate([A_stack.re, A_stack.im], axis=-1)
-            return wideband_fused_spectrum_pallas(
-                V, At, interpret=jax.default_backend() == "cpu")
 
-        def step(acc, vA):
-            v, Ar, Ai = vA
-            den = jnp.maximum(cpx_ops.music_denominator_subspace(
-                v, Cpx(Ar, Ai),
-                compute_dtype=jnp.dtype(cfg.compute_dtype)), 0.0)
-            P = 1.0 / jnp.maximum(den, jnp.finfo(jnp.float32).tiny)
-            return acc + P / jnp.max(P, axis=-1, keepdims=True), None
-
-        xs = (V, A_stack.re, A_stack.im)
+def fuse_subband_music(S, A_stack: Cpx, cfg: DoaConfig):
+    """Incoherent fusion of per-subband MUSIC spectra, one lax.scan step
+    per subband: S is either the signal subspaces f32[F, B, 2N, 2K]
+    (power path) or the noise projectors Cpx[F, B, N, N] →
+    f32[B, G] = mean_f of the max-normalized subband spectra."""
+    dt = jnp.dtype(cfg.compute_dtype)
+    if isinstance(S, Cpx):
+        den_fn = lambda s, A: cpx_ops.music_denominator_cpx(  # noqa: E731
+            s, A, compute_dtype=dt)
+        B = S.re.shape[1]
     else:
-        if R is None:
-            from doa_tpu.cpx import unembed_hermitian
-            R = unembed_hermitian(E_sub)
-        Mp = jax.vmap(lambda r: cpx_ops.noise_projector_cpx(
-            r, cfg.num_sources))(R)
+        den_fn = lambda s, A: jnp.maximum(  # noqa: E731
+            cpx_ops.music_denominator_subspace(s, A, compute_dtype=dt), 0.0)
+        B = S.shape[1]
 
-        def step(acc, vA):
-            mr, mi, Ar, Ai = vA
-            den = cpx_ops.music_denominator_cpx(
-                Cpx(mr, mi), Cpx(Ar, Ai),
-                compute_dtype=jnp.dtype(cfg.compute_dtype))
-            P = 1.0 / jnp.maximum(den, jnp.finfo(jnp.float32).tiny)
-            return acc + P / jnp.max(P, axis=-1, keepdims=True), None
+    def step(acc, sA):
+        s, A = sA
+        P = 1.0 / jnp.maximum(den_fn(s, A), jnp.finfo(jnp.float32).tiny)
+        return acc + P / jnp.max(P, axis=-1, keepdims=True), None
 
-        xs = (Mp.re, Mp.im, A_stack.re, A_stack.im)
+    F, G = A_stack.shape[0], A_stack.shape[1]
     acc0 = jnp.zeros((B, G), jnp.float32)
-    F = A_stack.shape[0]
-    return jax.lax.scan(step, acc0, xs)[0] / F       # incoherent fusion
+    return jax.lax.scan(step, acc0, (S, A_stack))[0] / F
 
 
 # ---------------------------------------------------------------------
@@ -362,21 +313,21 @@ def device_ula_steering_cpx(theta_deg, num_elements: int,
 
 def polar_unitary_cpx(M: Cpx, iters: int = 20, eps: float = 1e-4) -> Cpx:
     """Batched unitary polar factor T = M·(MᴴM + ε·tr̄·I)^{−1/2} via a
-    coupled Newton-Schulz inverse-sqrt — matmul-only, the TPU-native
+    coupled Newton-Schulz inverse-sqrt — matmul-only, the on-device
     replacement for the host SVD in `focusing_matrices` when the
     focusing directions are only known at RUNTIME (two-pass CSSM).
     M: Cpx[..., N, N]; ε regularizes rank-deficient direction sets
     (directions orthogonal to the fit carry no manifold energy).
 
-    Matmul precision is pinned locally (tensorfloat32): the NS
-    iteration diverges to ~0.12 unitarity error under JAX's default
-    single-pass-bf16 TPU matmuls (measured — the docs/PERF.md
-    precision trap), and this op must hold up standalone, outside the
-    pipelines' f32_matmuls trace scope."""
-    from doa_tpu.cpx import einsum as cpx_einsum
+    Traces under the pipelines' matmul precision (cpx.f32_matmuls) even
+    when called standalone: the NS iteration diverges to ~0.12
+    unitarity error under single-pass low-precision matmuls (measured
+    — PERF.md "Precision")."""
+    from doa_tpu import cpx
 
     N = M.shape[-1]
-    with jax.default_matmul_precision("tensorfloat32"):
+    cpx_einsum = cpx.einsum
+    with jax.default_matmul_precision(cpx.MATMUL_PRECISION):
         G = cpx_einsum("...mn,...mk->...nk", M.conj(), M)  # MᴴM ⪰ 0
         eye = jnp.eye(N, dtype=jnp.float32)
         trbar = jnp.trace(G.re, axis1=-2, axis2=-1)[..., None, None] / N
@@ -431,8 +382,7 @@ def device_ura_steering_cpx(az_deg, el_deg, shape,
 def auto_focused_covariance_cpx(x: Cpx, A_stack: Cpx, W: Cpx,
                                 cfg: DoaConfig,
                                 sector_halfwidth_deg: float = 2.0,
-                                sector_weight: float = 2.0,
-                                R_sub: Cpx | None = None) -> Cpx:
+                                sector_weight: float = 2.0) -> Cpx:
     """Two-pass AUTO-FOCUSED CSSM (fusion="cssm_auto"), fully on device.
 
     Pass 1: capture-mean subband covariances → incoherent fused MUSIC
@@ -446,11 +396,8 @@ def auto_focused_covariance_cpx(x: Cpx, A_stack: Cpx, W: Cpx,
     vs the static J=2N set: the fit concentrates where the sources
     actually are, which is what holds the coherent envelope at large
     fractional bandwidths (the FOV-uniform fit dilutes as the manifold
-    bends — see tests/test_cssm.py auto-vs-static sweep).
-
-    R_sub: optional precomputed subband covariances (x/W unused)."""
-    if R_sub is None:
-        R_sub = subband_covariances(x, W, cfg)           # (F, B, N, N)
+    bends — see tests/test_cssm.py auto-vs-static sweep)."""
+    R_sub = subband_covariances(x, W, cfg)               # (F, B, N, N)
     Rbar = Cpx(jnp.mean(R_sub.re, axis=1), jnp.mean(R_sub.im, axis=1))
     V = cpx_ops.signal_subspace_embedded(
         Rbar, cfg.num_sources, iters=max(cfg.power_iters, 16))
@@ -529,14 +476,10 @@ def runtime_focusing_cpx(P, cfg: DoaConfig, spacings,
 
 
 def cssm_covariance_cpx(x: Cpx, W: Cpx, T_foc: Cpx,
-                        cfg: DoaConfig,
-                        R_sub: Cpx | None = None) -> Cpx:
+                        cfg: DoaConfig) -> Cpx:
     """x: Cpx[T, N], W: DFT Cpx[F, F], T_foc: Cpx[F, N, N] →
-    focused coherent covariance Cpx[B, N, N] = mean_f T_f R_f T_fᴴ.
-
-    R_sub: optional precomputed subband covariances (x/W unused)."""
-    if R_sub is None:
-        R_sub = subband_covariances(x, W, cfg)       # (F, B, N, N)
+    focused coherent covariance Cpx[B, N, N] = mean_f T_f R_f T_fᴴ."""
+    R_sub = subband_covariances(x, W, cfg)           # (F, B, N, N)
     TR = cpx_ops_einsum("fnm,fbmk->fbnk", T_foc, R_sub)
     R_foc = cpx_ops_einsum("fbnk,fmk->fbnm", TR, T_foc.conj())
     return Cpx(jnp.mean(R_foc.re, axis=0), jnp.mean(R_foc.im, axis=0))
@@ -554,8 +497,7 @@ def wideband_music_hierarchical_cpx(x: Cpx, A_stack: Cpx, W: Cpx,
                                     cfg: DoaConfig, num_peaks: int,
                                     x_rng=(0.0, 180.0), grid2d=None,
                                     half_width_deg: float = 1.5,
-                                    num_points: int = 17,
-                                    E_sub=None):
+                                    num_points: int = 17):
     """Coarse→refine WIDEBAND MUSIC (power path): fuse the coarse
     subband spectra, find peak basins, then refine each peak on an
     on-device micro-grid of the FUSED metric — every subband's exact
@@ -568,7 +510,7 @@ def wideband_music_hierarchical_cpx(x: Cpx, A_stack: Cpx, W: Cpx,
         ula_denominator_at, ura_denominator_at)
     from doa_tpu.ops.peaks import find_local_max, find_local_max_2d
 
-    P_sub, V = _subband_spectra(x, A_stack, W, cfg, E_sub=E_sub)
+    P_sub, V = _subband_spectra(x, A_stack, W, cfg)
     if V is None:
         raise ValueError("wideband hierarchical requires "
                          "subspace_method='power'")
@@ -593,13 +535,11 @@ def wideband_music_hierarchical_cpx(x: Cpx, A_stack: Cpx, W: Cpx,
         Chunked over the WINDOW axis (lax.map over B-chunks of
         `refine_chunk`, all F subbands vmapped inside): the micro-grid
         steering sin/cos intermediates are (B, k, Wp², 2N)-sized —
-        vmapping F subbands over the full batch materialized
-        2×12.75 GB padded at the c5 production batch (OOM on a 16 GB
-        chip), while the r3 fix (lax.map PER SUBBAND) serialized F
-        tiny steps and made hierarchical 4.7× SLOWER than dense
-        (278.5 vs 59.1 ms, docs/PERF.md). Per-chunk live set at c5
-        defaults: F·chunk·k·Wp²·2N ≈ 0.6 GB — VMEM/HBM-friendly AND
-        one big parallel program per step."""
+        vmapping F subbands over the full batch materializes them for
+        the whole c5 production batch at once (tens of GB), while a
+        lax.map PER SUBBAND serializes F tiny steps. Per-chunk live set
+        at c5 defaults: F·chunk·k·Wp²·2N·4 B ≈ 0.6 GB, and one big
+        parallel program per step."""
         def den_at(v, d, ang):
             if is_2d:
                 return ura_denominator_at(v, ang[0], ang[1],

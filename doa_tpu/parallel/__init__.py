@@ -6,8 +6,8 @@ The reference is single-process; its parallelism inventory maps to:
         ("snap" mesh axis); each device owns a contiguous sample block and
         the windows that START in it.
   SP  — windows crossing a shard boundary need `overlap` halo samples from
-        the right neighbor → `lax.ppermute` neighbor exchange (the
-        ring/context-parallel analog).
+        the right neighbor → `lax.ppermute` neighbor exchange
+        (sharded.halo_exchange, the context-parallel analog).
   TP  — the steering grid is sharded over the "grid" mesh axis; each device
         scans its angle block; full spectra recovered by `all_gather`
         (only when peaks need the whole row).
@@ -17,8 +17,8 @@ The reference is single-process; its parallelism inventory maps to:
   EP  — wideband subbands sharded like a second batch axis (ops.wideband).
 
 Multi-host: the same meshes span hosts via `jax.distributed.initialize`;
-collectives ride ICI within a slice and DCN across hosts — see
-doa_tpu.parallel.multihost.
+XLA hands the collectives to NCCL (NVLink within a host, the network
+across hosts) — see doa_tpu.parallel.multihost.
 """
 
 from doa_tpu.parallel.mesh import make_mesh, MeshSpec

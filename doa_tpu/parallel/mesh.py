@@ -27,9 +27,10 @@ def make_mesh(spec: MeshSpec | None = None, devices=None) -> Mesh:
     """Build a ("snap", "grid") mesh.
 
     Default: all devices on the snap axis (snapshot DP is the dominant
-    axis for 1-D scans; grid TP pays off for large 2-D grids). The snap
-    axis is laid out contiguously so halo `ppermute`s are nearest-neighbor
-    hops on the ICI ring.
+    axis for 1-D scans; grid TP pays off for large 2-D grids). On a GPU
+    host every card reaches every other over NVLink at the same rate, so
+    the mesh shape follows the algorithm alone (which axis needs the
+    collectives), not a physical ring.
     """
     if devices is None:
         devices = jax.devices()

@@ -40,7 +40,7 @@ def initialize(coordinator_address: Optional[str] = None,
                n_grid: int = 1) -> DistributedContext:
     """Initialize the multi-host runtime and build the global mesh.
 
-    With no arguments, auto-detects (TPU pod metadata / env vars); single
+    With no arguments, auto-detects (cluster env vars); single
     process works too (num_processes=1), so the same entry point runs from
     a laptop to a pod slice.
     """

@@ -1,8 +1,9 @@
 """Sharded DoA pipeline under `jax.shard_map` (SURVEY §7.2 M5).
 
-Runs entirely on the split-complex (re/im planes) path so it compiles on
-complex-free TPU backends and uses the same MXU-optimal ops as the
-single-chip TPU pipeline (power-iteration subspace, stacked Grams).
+Runs entirely on the split-complex (re/im planes) path and uses the same
+ops as the single-device pipeline (power-iteration subspace, stacked
+Grams); XLA hands the collectives to the device's communication library
+(NCCL over NVLink on a GPU host).
 
 Layout (mesh axes from doa_tpu.parallel.mesh):
 
@@ -40,11 +41,17 @@ def num_valid_windows(T: int, cfg: DoaConfig) -> int:
     return 0 if T < S else (T - S) // hop + 1
 
 
-# Halo exchange (append the right neighbor's first `overlap` rows) is
-# dispatched by ops.pallas.ring.halo_exchange: cfg.halo_impl="xla" →
-# lax.ppermute (default; last shard zero-filled), "pallas" → fused ICI
-# async-remote-copy kernel (pods; last shard ring-wrapped). Tail windows
-# of the last shard are invalid either way (num_valid_windows).
+def halo_exchange(plane, overlap: int, axis_name: str):
+    """Per-shard (T_loc, ...) block → (T_loc + overlap, ...) with the
+    right neighbor's first `overlap` rows appended (lax.ppermute; call
+    inside shard_map on the time axis). The last shard's halo is zero:
+    its tail windows are invalid by construction (num_valid_windows)."""
+    n = jax.lax.axis_size(axis_name)
+    if overlap == 0 or n == 1:
+        return plane
+    halo = jax.lax.ppermute(plane[:overlap], axis_name,
+                            [(i + 1, i) for i in range(n - 1)])
+    return jnp.concatenate([plane, halo], axis=0)
 
 
 def _local_peaks_merge_1d(P_loc, num_max_vals: int, x_rng, refine: bool):
@@ -53,7 +60,7 @@ def _local_peaks_merge_1d(P_loc, num_max_vals: int, x_rng, refine: bool):
     neighbors make every LOCAL bin's peak test exact, peaks + sub-bin
     refinement run on the local block with the global angle mapping,
     and only (value, angle) candidates — O(k) per device — cross the
-    ICI, merged by an iterative-argmax top-k. Matches dense
+    interconnect, merged by an iterative-argmax top-k. Matches dense
     find_local_max semantics including the pad-with-best-peak /
     global-argmax fallbacks.
 
@@ -246,11 +253,7 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     outputs. T must be divisible by (n_snap * hop).
 
     return_spectra=False drops the (B, G) spectrum outputs (peaks only
-    — the production streaming shape, mirroring build_pipeline_tpu):
-    on the fast path with an UNSHARDED grid (n_grid=1, pure DP) the
-    MUSIC scan then fuses normalize+peaks into the scan kernel and the
-    spectrum never leaves VMEM — per-device work equals the fused
-    single-chip program (measured: docs/PERF.md r5 sharded row).
+    — the production streaming shape, mirroring build_pipeline_tpu).
 
     Wideband configs use the EXPERT-PARALLEL layout (SURVEY §2.5 EP):
     the time axis is snap-sharded as usual, each device channelizes its
@@ -289,22 +292,16 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
     # 2-D O(k) merge needs whole az rows per grid shard (n_grid | num_az)
     use_2d_merge = (is_2d and n_grid > 0
                     and (G // n_grid) % cfg.grid2d.num_el == 0)
-    # Fused narrowband fast path (VERDICT r4 missing #1): the same
-    # composition as the single-chip fused pipeline, per device —
-    # interleaved ingest (the halo exchange runs on interleaved rows),
-    # the Pallas embedded-covariance kernel, warm-start subspaces from
-    # the psum'd GLOBAL capture mean, and the fused Pallas scan feeding
-    # the O(k) peak merge. Per-chip work under DP/TP then matches the
-    # fused single-chip program instead of the ~3× slower XLA
-    # composition (docs/PERF.md).
+    # Interleaved-ingest path: the same composition as the single-
+    # device pipeline's, per device — interleaved rows in (the halo
+    # exchange runs on rows), the embedded-covariance Gram, warm-start
+    # subspaces from the psum'd GLOBAL capture mean, and the scan
+    # feeding the O(k) peak merge.
     import math as _math
-    from doa_tpu.ops.pallas.cov_embedded import interleave_factor
-    from doa_tpu.pipeline_tpu import _resolve_impl
+    from doa_tpu.ops.interleaved import interleave_factor
     N_el = cfg.geometry.num_elements
-    cov_impl, interp = _resolve_impl(cfg)
     tp = interleave_factor(N_el)
-    fast = (cov_impl == "pallas" and use_power and not bs
-            and not cfg.smoothing.enabled
+    fast = (use_power and not bs and not cfg.smoothing.enabled
             and _math.gcd(S, hop) % tp == 0)
 
     def _peaks(P_full):
@@ -349,11 +346,8 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
         out[f"peak_angles_{est.value}"] = l
 
     def shard_fn(xr, xi, cr, ci, Ar, Ai):
-        from doa_tpu.ops.pallas.ring import halo_exchange
-        x = Cpx(halo_exchange(xr, overlap, SNAP_AXIS,
-                              impl=cfg.halo_impl),
-                halo_exchange(xi, overlap, SNAP_AXIS,
-                              impl=cfg.halo_impl))
+        x = Cpx(halo_exchange(xr, overlap, SNAP_AXIS),
+                halo_exchange(xi, overlap, SNAP_AXIS))
         # Correction folded into R ((c cᴴ) ∘ R, exact — see
         # cpx_ops.apply_correction_to_cov) BEFORE FB/smoothing: two fewer
         # full passes over the time-sharded sample planes per device.
@@ -470,27 +464,19 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                 R, cfg.num_sources, cfg.geometry.norm_spacing)
 
     def shard_fn_fast(xil, cr, ci, Ar, Ai):
-        """The fused single-chip composition per device (VERDICT r4
-        missing #1): interleaved rows in, halo on rows, Pallas
-        embedded-covariance kernel (correction + FB in-kernel), warm
-        subspaces from the psum'd global capture mean, fused Pallas
-        MUSIC scan into the O(k) merge."""
-        from doa_tpu.cpx import embed_vector, unembed_hermitian
-        from doa_tpu.ops.pallas.cov_embedded import cov_embedded_pallas
-        from doa_tpu.ops.pallas.music_scan import music_scan_from_packed
-        from doa_tpu.ops.pallas.ring import halo_exchange
-        from doa_tpu.ops.pallas.subspace import packing_width
+        """The single-device interleaved composition per device:
+        interleaved rows in, halo on rows, embedded-covariance Gram
+        (correction + FB folded), warm subspaces from the psum'd global
+        capture mean, MUSIC scan into the O(k) merge."""
+        from doa_tpu.ops.interleaved import cov_embedded
 
         n_snap = mesh.shape[SNAP_AXIS]
-        x_ext = halo_exchange(xil, overlap // tp, SNAP_AXIS,
-                              impl=cfg.halo_impl)
-        E_win = cov_embedded_pallas(
+        x_ext = halo_exchange(xil, overlap // tp, SNAP_AXIS)
+        R, E_win = cov_embedded(
             x_ext, cr, ci, N=N_el, snapshot_size=S, overlap=overlap,
-            fb=fb, compute_dtype=jnp.dtype(cfg.cov_dtype),
-            interpret=interp)                     # (B_loc, 2N, 2N)
-        B_loc, n2 = E_win.shape[0], E_win.shape[-1]
+            fb=fb, compute_dtype=jnp.dtype(cfg.cov_dtype))
+        B_loc = E_win.shape[0]
         K = cfg.num_sources
-        k2 = 2 * K
         T = xil.shape[0] * tp * n_snap
         B_valid = 0 if T < S else (T - S) // hop + 1
         n_invalid = B_loc * n_snap - B_valid
@@ -529,43 +515,15 @@ def build_sharded_pipeline(cfg: DoaConfig, mesh: Mesh,
                 squarings=cfg.power_squarings, return_stats=True,
                 **(kw if cfg.power_squarings == 0 else {}))
         A = Cpx(Ar, Ai)
-        need_R = any(e in (Estimator.CAPON, Estimator.BARTLETT,
-                           Estimator.ROOT_MUSIC, Estimator.ESPRIT,
-                           Estimator.UNITARY_ESPRIT)
-                     for e in cfg.estimators)
-        R = unembed_hermitian(E_win) if need_R else None
         V_emb = jnp.swapaxes(Vt, -1, -2)
         out = {}
         for est in cfg.estimators:
             if est == Estimator.MUSIC:
-                W_pack = packing_width(n2, K)
-                Bp = -(-B_loc // W_pack) * W_pack
-                Vp_flat = Vt.reshape(B_loc * k2, n2)
-                if Bp != B_loc:
-                    Vp_flat = jnp.concatenate(
-                        [Vp_flat,
-                         jnp.zeros(((Bp - B_loc) * k2, n2),
-                                   Vp_flat.dtype)], axis=0)
-                Vp = Vp_flat.reshape(-1, W_pack * k2, n2)
-                if (not return_spectra and n_grid == 1 and not is_2d
-                        and cfg.num_max_vals <= 4):
-                    # unsharded grid: peaks fuse into the scan kernel
-                    # and no merge is needed — per-device work equals
-                    # the fused single-chip streaming program
-                    from doa_tpu.ops.pallas.music_scan import (
-                        music_scan_peaks_from_packed)
-                    try:
-                        v, l = music_scan_peaks_from_packed(
-                            Vp, k2, embed_vector(A),
-                            cfg.num_max_vals, x_rng[0], x_rng[1],
-                            refine=refine_peaks, interpret=interp)
-                        out[f"peak_values_{est.value}"] = v[:B_loc]
-                        out[f"peak_angles_{est.value}"] = l[:B_loc]
-                        continue
-                    except ValueError:
-                        pass   # grid too large for VMEM: unfused
-                P_loc = music_scan_from_packed(
-                    Vp, k2, embed_vector(A), interpret=interp)[:B_loc]
+                den = jnp.maximum(cpx_ops.music_denominator_subspace(
+                    V_emb, A, compute_dtype=jnp.dtype(cfg.compute_dtype)),
+                    0.0)
+                P_loc = 1.0 / jnp.maximum(den,
+                                          jnp.finfo(jnp.float32).tiny)
             elif est == Estimator.MIN_NORM:
                 from doa_tpu.ops.min_norm import (
                     min_norm_denominator_subspace)
@@ -736,95 +694,13 @@ def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
         return find_local_max(P_full, cfg.num_max_vals, x_rng[0],
                               x_rng[1], refine=refine_peaks)
 
-    # Fast per-device front-end: the fused FFT channelizer + embedded
-    # Gram kernel (ops.pallas.wideband_cov) under shard_map. Each
-    # device runs the kernel over its LOCAL time block — the FFT
-    # yields all F subbands at once (that work is inherent), and the
-    # device keeps its F_loc slice for the expensive subspace/scan
-    # stages. The kernel is ~5× the XLA channelize+cov pair, so the
-    # F/F_loc Gram redundancy is noise next to the subspace stage.
-    from doa_tpu.ops.pallas.cov_embedded import interleave_factor
-    from doa_tpu.pipeline_tpu import _resolve_impl
+    # Interleaved ingest (the single-device wideband gate, F | TPACK
+    # rows): each device deinterleaves its local block and runs the
+    # planes composition below.
+    from doa_tpu.ops.interleaved import deinterleave, interleave_factor
     N_el = cfg.geometry.num_elements
-    cov_impl, interp = _resolve_impl(cfg)
     tp = interleave_factor(N_el)
-    fast = (cov_impl == "pallas" and not (F & (F - 1)) and F % tp == 0
-            and (interp or 2 * N_el >= 128))
-
-    def shard_fn_fast(xil, cr, ci, Asr, Asi):
-        from doa_tpu.cpx import unembed_hermitian
-        from doa_tpu.ops.pallas.wideband_cov import (
-            wideband_cov_embedded_pallas)
-        from doa_tpu.ops.wideband import subband_subspaces_from_E
-
-        ep = jax.lax.axis_index(GRID_AXIS)
-        E = wideband_cov_embedded_pallas(
-            xil, None, cr, ci, N=N_el, F=F, snapshot_size=S,
-            overlap=cfg.overlap, variant="fft",
-            interpret=interp)                       # (F, B_loc, 2N, 2N)
-        E_loc = jax.lax.dynamic_slice_in_dim(E, ep * F_loc, F_loc,
-                                             axis=0)
-        A_loc = Cpx(Asr, Asi)                       # (F_loc, G, N)
-        if cfg.subspace_method == "power":
-            # warm start from the GLOBAL capture mean (pmean over the
-            # time shards): shard-local means leave a visible init
-            # residue at power_iters_warm=2 (r5)
-            # gate on the GLOBAL window count (single-device semantics)
-            Ebar = (jax.lax.pmean(jnp.mean(E_loc, axis=1), SNAP_AXIS)
-                    if cfg.subspace_warm_start
-                    and E_loc.shape[1] * mesh.shape[SNAP_AXIS] >= 32
-                    else None)
-            V = subband_subspaces_from_E(E_loc, cfg, Ebar=Ebar)
-            from doa_tpu.ops.wideband import _wb_fusion_resolved
-            if _wb_fusion_resolved(cfg) == "pallas":
-                # per-device partial fusion through the fused kernel
-                # (ops/pallas/wideband_scan): mean over LOCAL subbands
-                # × F_loc = the local subband-sum; one psum fuses the
-                # mesh — same semantics as the vmap form, den never
-                # leaves VMEM per device
-                from doa_tpu.cpx import embed_vector
-                from doa_tpu.ops.pallas.wideband_scan import (
-                    wideband_fused_spectrum_pallas)
-                P_part = wideband_fused_spectrum_pallas(
-                    V, embed_vector(A_loc),
-                    interpret=interp) * F_loc       # (B, G) local sum
-                P = jax.lax.psum(P_part, GRID_AXIS) / F
-                v, l = _peaks(P)
-                out = {"peak_values_music": v, "peak_angles_music": l}
-                if return_spectra:
-                    out["spectrum_music"] = P
-                return out
-
-            def spec_one(v, Af):
-                den = jnp.maximum(
-                    cpx_ops.music_denominator_subspace(
-                        v, Af,
-                        compute_dtype=jnp.dtype(cfg.compute_dtype)),
-                    0.0)
-                Pl = 1.0 / jnp.maximum(den,
-                                       jnp.finfo(jnp.float32).tiny)
-                return Pl / jnp.max(Pl, axis=-1, keepdims=True)
-
-            P_sub = jax.vmap(spec_one)(V, A_loc)    # (F_loc, B, G)
-        else:
-            R = unembed_hermitian(E_loc)
-            Mp = jax.vmap(lambda r: cpx_ops.noise_projector_cpx(
-                r, cfg.num_sources))(R)
-
-            def spec_one(mp, Af):
-                den = cpx_ops.music_denominator_cpx(
-                    mp, Af, compute_dtype=jnp.dtype(cfg.compute_dtype))
-                Pl = 1.0 / jnp.maximum(den,
-                                       jnp.finfo(jnp.float32).tiny)
-                return Pl / jnp.max(Pl, axis=-1, keepdims=True)
-
-            P_sub = jax.vmap(spec_one)(Mp, A_loc)
-        P = jax.lax.psum(jnp.sum(P_sub, axis=0), GRID_AXIS) / F
-        v, l = _peaks(P)
-        out = {"peak_values_music": v, "peak_angles_music": l}
-        if return_spectra:
-            out["spectrum_music"] = P
-        return out
+    fast = F % tp == 0
 
     def shard_fn(xr, xi, cr, ci, Wr, Wi, Asr, Asi):
         from doa_tpu.ops.wideband import channelize_cpx
@@ -886,6 +762,10 @@ def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
             out["spectrum_music"] = P
         return out
 
+    def shard_fn_fast(xil, cr, ci, Wr, Wi, Asr, Asi):
+        x = deinterleave(xil, N_el)
+        return shard_fn(x.re, x.im, cr, ci, Wr, Wi, Asr, Asi)
+
     out_specs = {"peak_values_music": P(SNAP_AXIS, None),
                  "peak_angles_music": P(SNAP_AXIS, None)}
     if return_spectra:
@@ -893,7 +773,7 @@ def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
     if fast:
         mapped = jax.shard_map(
             shard_fn_fast, mesh=mesh,
-            in_specs=(P(SNAP_AXIS, None), P(), P(),
+            in_specs=(P(SNAP_AXIS, None), P(), P(), P(), P(),
                       P(GRID_AXIS, None, None),
                       P(GRID_AXIS, None, None)),
             out_specs=out_specs,
@@ -943,7 +823,7 @@ def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
             xil = jax.device_put(
                 xil_h, NamedSharding(mesh, P(SNAP_AXIS, None)))
             cr, ci = _correction_planes(N, correction)
-            return jitted(xil, cr, ci, Asr_d, Asi_d)
+            return jitted(xil, cr, ci, Wr_d, Wi_d, Asr_d, Asi_d)
         if isinstance(x, Cpx):
             xr_h, xi_h = np.asarray(x.re), np.asarray(x.im)
         else:
@@ -963,6 +843,7 @@ def _build_sharded_wideband(cfg: DoaConfig, mesh: Mesh,
     call.jitted = jitted
     call.mesh = mesh
     call.fast = fast
+    call.wb_args = (Wr_d, Wi_d, Asr_d, Asi_d)
     return call
 
 
@@ -977,7 +858,7 @@ def _build_sharded_tops(cfg: DoaConfig, mesh: Mesh,
     of the frame-DFT at once), keeps its F_loc slice for the expensive
     per-band subspace iteration, and REPLICATES the reference band's
     covariance + subspace (tiny: one band, and it avoids any subspace
-    broadcast over ICI). The fusion point is ONE psum of the
+    broadcast over the interconnect). The fusion point is ONE psum of the
     (G, B_loc, K, K) Σ CᴴC accumulator over the EP axis — the TOPS
     analog of the incoherent path's spectrum-sum psum — after which
     every device finalizes λ_min and extracts peaks on its local
@@ -1336,7 +1217,7 @@ def _build_sharded_cssm(cfg: DoaConfig, mesh: Mesh,
 def distributed_covariance(mesh: Mesh):
     """→ jitted fn(x) → R: Cpx[N, N] — ONE covariance over the whole
     time-sharded capture: local stacked Grams + `psum` over the snap axis
-    (the calibration-at-scale primitive: partial sums ride ICI instead of
+    (the calibration-at-scale primitive: partial sums cross devices instead of
     gathering GB/s of samples to one host)."""
 
     def shard_fn(xr, xi):

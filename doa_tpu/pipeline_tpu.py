@@ -1,10 +1,10 @@
-"""TPU pipeline on the split-complex (real-planes) path.
+"""Production pipeline on the split-complex (real-planes) path.
 
-Same structure as doa_tpu.pipeline but with NO complex dtype anywhere in
-the compiled program: inputs are (re, im) f32 planes, all ops come from
-doa_tpu.ops.cpx_ops, eigendecompositions run on real 2N embeddings. This
-is the path deployed on TPU backends (complex-free and MXU-optimal), and
-the integration point for the Pallas kernels.
+Same structure as doa_tpu.pipeline but with no complex dtype in the
+compiled program: inputs are (re, im) f32 planes or interleaved IQ rows,
+all ops come from doa_tpu.ops.cpx_ops, eigendecompositions run on real
+2N embeddings. Every stage is plain jax.numpy/lax that XLA compiles for
+the device it runs on.
 """
 
 from __future__ import annotations
@@ -17,39 +17,22 @@ import numpy as np
 from doa_tpu.configs import AvgMethod, DoaConfig, Estimator
 from doa_tpu.cpx import Cpx
 from doa_tpu.ops import cpx_ops
+from doa_tpu.ops.interleaved import (
+    cov_embedded, deinterleave, interleave_factor)
 from doa_tpu.ops.peaks import find_local_max, find_local_max_2d
 from doa_tpu.ops.root_music import root_music_cpx
 from doa_tpu.pipeline import DoaResult, _steering_fn, _steering_matrix
 
 
-def _resolve_impl(cfg: DoaConfig):
-    """→ (cov_impl, interpret): Pallas kernels compile natively on TPU
-    backends and run in interpreter mode elsewhere (tests); cov_impl
-    'auto' avoids the interpreter's overhead by picking XLA off-TPU."""
-    import jax
-
-    on_tpu = jax.default_backend() != "cpu"
-    cov_impl = cfg.cov_impl
-    if cov_impl == "auto":
-        cov_impl = "pallas" if on_tpu else "xla"
-    return cov_impl, not on_tpu
-
-
 def compute_covariances_cpx(x: Cpx, cfg: DoaConfig,
-                            correction: Cpx | None = None,
-                            cov_impl: str = "xla",
-                            interpret: bool = False) -> Cpx:
+                            correction: Cpx | None = None) -> Cpx:
     """Covariance windows with the calibration correction FOLDED INTO R
     ((c cᴴ) ∘ R — exact, see cpx_ops.apply_correction_to_cov) instead of
     scaling the T×N sample stream: saves two full passes over the input
     at the headline config. Order matters: correction → FB averaging →
     spatial smoothing, matching the reference chain."""
-    import jax.numpy as _jnp
-
     R = cpx_ops.cov_from_stream_cpx(
-        x, cfg.snapshot_size, cfg.overlap, fb_average=False,
-        impl=cov_impl, cov_dtype=_jnp.dtype(cfg.cov_dtype),
-        interpret=interpret)
+        x, cfg.snapshot_size, cfg.overlap, fb_average=False)
     if correction is not None:
         R = cpx_ops.apply_correction_to_cov(R, correction)
     if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
@@ -57,6 +40,29 @@ def compute_covariances_cpx(x: Cpx, cfg: DoaConfig,
     if cfg.smoothing.enabled:
         R = cpx_ops.spatial_smooth_cpx(R, cfg.smoothing.subarray_size)
     return R
+
+
+def warm_signal_subspace(E_win, cfg: DoaConfig):
+    """Embedded windows E f32[B, 2N, 2N] → (V_emb f32[B, 2N, 2K],
+    escalation stats (flagged, overflow) int32 scalars — zeros when the
+    detector is disarmed). With cfg.subspace_warm_start and B ≥ 32 every
+    window starts from the capture-mean subspace and refines with
+    power_iters_warm E-applies (see configs.subspace_warm_start)."""
+    if cfg.subspace_warm_start and E_win.shape[0] >= 32:
+        Vt_bar = cpx_ops.signal_subspace_from_E_T(
+            jnp.mean(E_win, axis=0)[None], cfg.num_sources,
+            iters=max(cfg.power_iters, 8), **cfg.escalate_kwargs)
+        init = jnp.broadcast_to(
+            Vt_bar, (E_win.shape[0],) + Vt_bar.shape[1:])
+        Vt, esc_stats = cpx_ops.signal_subspace_from_E_T(
+            E_win, cfg.num_sources, iters=cfg.power_iters_warm,
+            init=init, return_stats=True, **cfg.escalate_kwargs)
+    else:
+        Vt, esc_stats = cpx_ops.signal_subspace_from_E_T(
+            E_win, cfg.num_sources, iters=cfg.power_iters,
+            squarings=cfg.power_squarings, return_stats=True,
+            **(cfg.escalate_kwargs if cfg.power_squarings == 0 else {}))
+    return jnp.swapaxes(Vt, -1, -2), esc_stats
 
 
 def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
@@ -75,10 +81,7 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
     wrong for benchmarks that loop over one resident array).
 
     return_spectra=False drops the (B, G) pseudospectra from the result
-    (peaks only — the production streaming shape). On the Pallas scan
-    path this additionally fuses normalize+peaks INTO the scan kernel
-    (ops.pallas.music_scan._scan_peaks_kernel): the spectrum never
-    leaves VMEM and the HBM output is the (B, k) peak list.
+    (peaks only — the production streaming shape).
     """
     A_host, x_rng = _steering_matrix(cfg)
     bs = cfg.beamspace.enabled
@@ -95,7 +98,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
     want_root = (Estimator.ROOT_MUSIC in cfg.estimators
                  and cfg.geometry.kind == "ula")
     is_2d = cfg.grid2d is not None and cfg.geometry.kind == "ura"
-    cov_impl, interp = _resolve_impl(cfg)
 
     wb = cfg.wideband.enabled
     wb_cssm = wb and cfg.wideband.fusion == "cssm"
@@ -126,24 +128,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
         if is_2d:
             g2 = cfg.grid2d
             P2 = P.reshape(P.shape[0], g2.num_az, g2.num_el)
-            use_p2d = (cfg.peaks_impl == "pallas"
-                       or (cfg.peaks_impl == "auto"
-                           and cov_impl == "pallas"))
-            if use_p2d and cfg.num_max_vals <= 4:
-                # Fused 2-D peaks kernel: one pass over the spectrum
-                # instead of XLA's mask/flatten/argmax/gather chain
-                # (6.6 → ~1 ms at the c5 shape — docs/PERF.md).
-                # peaks_impl="xla" opts out of just this kernel (it is
-                # shape-sensitive on some Mosaic toolchains) without
-                # abandoning the fused covariance/scan path.
-                from doa_tpu.ops.pallas.peaks2d import (
-                    find_local_max_2d_pallas)
-                v, az, el = find_local_max_2d_pallas(
-                    P2, cfg.num_max_vals,
-                    (g2.az_lo_deg, g2.az_hi_deg),
-                    (g2.el_lo_deg, g2.el_hi_deg),
-                    refine=refine_peaks, interpret=interp)
-                return v, jnp.stack([az, el], axis=-1)
             v, az, el = find_local_max_2d(
                 P2, cfg.num_max_vals,
                 (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg),
@@ -155,107 +139,32 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
 
     N_el = cfg.geometry.num_elements
     use_power = cfg.subspace_method == "power"
-    from doa_tpu.ops.pallas.cov_embedded import interleave_factor
     tp = interleave_factor(N_el)
-    # Fused fast path: interleaved-ingest Pallas covariance emitting the
-    # EMBEDDED E(R) directly (correction + FB folded in-kernel), Pallas
-    # subspace iteration in VMEM, packed handoff to the Pallas scan.
+    # Interleaved-ingest paths (call.interleaved, scan_capture, the
+    # zero-copy complex64 route). Narrowband: the Gram of interleaved
+    # rows emits E(R) directly (ops.interleaved.cov_embedded) into the
+    # warm-start subspace iteration. Wideband: the rows deinterleave
+    # into the same channelizer + subband covariances as the planes
+    # path.
     import math
-    fast_cov = (cov_impl == "pallas" and not wb
-                and not cfg.smoothing.enabled and use_power
+    fast_cov = (not wb and not cfg.smoothing.enabled and use_power
                 and math.gcd(cfg.snapshot_size, cfg.hop) % tp == 0)
-    # Wideband fast path: interleaved ingest → dense-matmul channelizer
-    # → multi-subband Pallas Gram kernel (ops.pallas.wideband_cov). On
-    # real hardware only for 2N ≥ 128 lanes (the c5 production regime —
-    # narrower per-subband column slices don't tile); any N in
-    # interpret mode (tests).
-    wb_fast = (wb and cov_impl == "pallas"
-               and cfg.snapshot_size % cfg.wideband.num_subbands == 0
-               and cfg.wideband.num_subbands % tp == 0
-               and (interp or 2 * N_el >= 128))
-    if wb_fast:
-        from doa_tpu.ops.pallas.wideband_cov import channelizer_matrix
-        wb_ilv_args = (jax.device_put(channelizer_matrix(
-            cfg.wideband.num_subbands, N_el)), wb_args[2], wb_args[3])
+    wb_fast = (wb and cfg.snapshot_size % cfg.wideband.num_subbands == 0
+               and cfg.wideband.num_subbands % tp == 0)
     want_unitary = (Estimator.UNITARY_ESPRIT in cfg.estimators
                     and cfg.geometry.kind == "ula")
     need_R = (Estimator.CAPON in cfg.estimators
               or Estimator.BARTLETT in cfg.estimators
               or Estimator.ESPRIT in cfg.estimators
               or want_unitary or want_root or return_covariance)
-    # "auto" composes the measured-fastest path per backend: the fused
-    # Pallas scan when the fast covariance path is active, dense XLA
-    # otherwise (docs/PERF.md).
     scan_mode = cfg.scan_mode
-    if scan_mode == "auto":
-        # Beamspace scans are dense-only (config-validated); the fused
-        # element-space covariance kernel stays on either way.
-        scan_mode = "pallas" if (fast_cov and not bs) else "dense"
-
-    def _subspace_packed(E_win):
-        """→ (Vp packed f32[nb, W·2K, 2N], escalation stats (flagged,
-        overflow) int32 scalars — zeros when the detector is disarmed
-        or on the Pallas cold-kernel impl)."""
-        from doa_tpu.ops.pallas.subspace import (
-            packing_width, subspace_packed_pallas)
-        n2 = E_win.shape[-1]
-        k2 = 2 * cfg.num_sources
-        W = packing_width(n2, cfg.num_sources)
-        esc_stats = (jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32))
-        if cfg.subspace_impl in ("auto", "xla"):
-            # Transposed-layout XLA iteration: Vt.reshape IS the packed
-            # layout (leading-dim merges only — no relayout pass).
-            # (A fused warm-refine Pallas kernel was measured here in
-            # r3/r4 and REMOVED: 6× slower at 2N=32 — per-window
-            # micro-dot latency — and its design shape 2N=128 fails to
-            # compile on this Mosaic toolchain, while this XLA path
-            # runs at 1.2× its E-read floor. Post-mortem:
-            # docs/PERF.md "warm-refine fusion experiments".)
-            if cfg.subspace_warm_start and E_win.shape[0] >= 32:
-                # warm start from the capture-mean subspace: per-window
-                # refinement reads E power_iters_warm times, not
-                # power_iters (see configs.subspace_warm_start).
-                # (r4 measured: SUBSAMPLING this mean (E_win[::8]) to
-                # cut the pass is a LOSS — 10.62 vs 9.76 ms headline;
-                # the strided slice materializes as a gather that costs
-                # more than the full contiguous mean pass it replaces.)
-                Vt_bar = cpx_ops.signal_subspace_from_E_T(
-                    jnp.mean(E_win, axis=0)[None], cfg.num_sources,
-                    iters=max(cfg.power_iters, 8),
-                    **cfg.escalate_kwargs)
-                init = jnp.broadcast_to(
-                    Vt_bar, (E_win.shape[0],) + Vt_bar.shape[1:])
-                Vt, esc_stats = cpx_ops.signal_subspace_from_E_T(
-                    E_win, cfg.num_sources,
-                    iters=cfg.power_iters_warm, init=init,
-                    return_stats=True, **cfg.escalate_kwargs)
-            else:
-                Vt, esc_stats = cpx_ops.signal_subspace_from_E_T(
-                    E_win, cfg.num_sources, iters=cfg.power_iters,
-                    squarings=cfg.power_squarings, return_stats=True,
-                    **(cfg.escalate_kwargs
-                       if cfg.power_squarings == 0 else {}))
-            B = E_win.shape[0]
-            Bp = ((B + W - 1) // W) * W
-            Vp_flat = Vt.reshape(B * k2, n2)
-            if Bp != B:
-                # zero pad rows: padded windows scan to den = ‖a‖² > 0
-                # and are sliced off by the [:B] consumers
-                Vp_flat = jnp.concatenate(
-                    [Vp_flat, jnp.zeros(((Bp - B) * k2, n2),
-                                        Vp_flat.dtype)], axis=0)
-        else:
-            Vp_flat = subspace_packed_pallas(
-                E_win, cfg.num_sources, iters=cfg.power_iters,
-                squarings=cfg.power_squarings, interpret=interp)
-        return Vp_flat.reshape(-1, W * k2, n2), esc_stats
 
     def _estimate(R, E_win, Ar, Ai):
         """Everything downstream of the covariance stage. Exactly one of
         R (Cpx windows) / E_win (embedded windows) may be None."""
         if bs:
             # Project onto the beam sector HERE (covariance stays
-            # element-space so the fused cov kernel is untouched); every
+            # element-space, shared with the plain path); every
             # downstream subspace/scan tensor shrinks N → Nb.
             from doa_tpu.ops.beamspace import (beamspace_cov_cpx,
                                                beamspace_embedded)
@@ -282,8 +191,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                 return unembed_hermitian(P_emb)
             return cpx_ops.noise_projector_cpx(R, cfg.num_sources)
         V_emb = None
-        Vp = None
-        B_out = (E_win if R is None else R.re).shape[0]
         sub_res = None
         esc_stats = (jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32))
         want_mn = Estimator.MIN_NORM in cfg.estimators
@@ -291,14 +198,7 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                 and (Estimator.MUSIC in cfg.estimators or want_root
                      or want_mn)):
             if E_win is not None:
-                Vp, esc_stats = _subspace_packed(E_win)
-                if (scan_mode != "pallas" or want_root or want_mn
-                        or cfg.subspace_check):
-                    from doa_tpu.ops.pallas.subspace import (
-                        packed_to_batched)
-                    V_emb = packed_to_batched(
-                        Vp.reshape(-1, E_win.shape[-1]), B_out,
-                        cfg.num_sources)
+                V_emb, esc_stats = warm_signal_subspace(E_win, cfg)
             else:
                 V_emb, esc_stats = cpx_ops.signal_subspace_embedded(
                     R, cfg.num_sources, iters=cfg.power_iters,
@@ -312,7 +212,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                 V_emb, sub_res = cpx_ops.guarded_signal_subspace(
                     E_chk, V_emb, cfg.num_sources,
                     tol=cfg.subspace_tol)
-                Vp = None   # guarded V replaces the packed fast path
         hier = scan_mode == "hierarchical" and use_power
         for est in cfg.estimators:
             if est == Estimator.MUSIC:
@@ -336,49 +235,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                         compute_dtype=jnp.dtype(cfg.compute_dtype))
                     pvals[est.value] = v
                     pangs[est.value] = jnp.stack([az, el], axis=-1)
-                    continue
-                if scan_mode == "pallas":
-                    from doa_tpu.cpx import embed_vector
-                    from doa_tpu.ops.pallas.music_scan import (
-                        music_scan_from_packed, music_scan_pallas,
-                        music_scan_peaks_from_packed,
-                        music_scan_peaks_pallas)
-                    fuse_peaks = (not return_spectra and not is_2d
-                                  and cfg.num_max_vals <= 4)
-                    if fuse_peaks:
-                        try:
-                            if Vp is not None:
-                                v, l = music_scan_peaks_from_packed(
-                                    Vp, 2 * cfg.num_sources,
-                                    embed_vector(A), cfg.num_max_vals,
-                                    x_rng[0], x_rng[1],
-                                    refine=refine_peaks,
-                                    interpret=interp)
-                                v, l = v[:B_out], l[:B_out]
-                            else:
-                                v, l = music_scan_peaks_pallas(
-                                    V_emb, embed_vector(A),
-                                    cfg.num_max_vals, x_rng[0],
-                                    x_rng[1], refine=refine_peaks,
-                                    interpret=interp)
-                            pvals[est.value] = v
-                            pangs[est.value] = l
-                            continue
-                        except ValueError:
-                            pass   # grid too large for VMEM: unfused
-                    if Vp is not None:
-                        P = music_scan_from_packed(
-                            Vp, 2 * cfg.num_sources, embed_vector(A),
-                            interpret=interp)[:B_out]
-                    else:
-                        P = music_scan_pallas(V_emb, embed_vector(A),
-                                              interpret=interp)
-                    P = P / jnp.max(P, axis=-1, keepdims=True)
-                    v, l = _peaks(P)
-                    if return_spectra:
-                        spectra[est.value] = P
-                    pvals[est.value] = v
-                    pangs[est.value] = l
                     continue
                 if use_power:
                     den = cpx_ops.music_denominator_subspace(
@@ -477,17 +333,6 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
             escalation_overflow=esc_stats[1],
         )
 
-    def _fast_cov(xil, cr, ci):
-        from doa_tpu.cpx import unembed_hermitian
-        from doa_tpu.ops.pallas.cov_embedded import cov_embedded_pallas
-        E_win = cov_embedded_pallas(
-            xil, cr, ci, N=N_el, snapshot_size=cfg.snapshot_size,
-            overlap=cfg.overlap,
-            fb=cfg.avg_method == AvgMethod.FORWARD_BACKWARD,
-            compute_dtype=jnp.dtype(cfg.cov_dtype), interpret=interp)
-        R = unembed_hermitian(E_win) if need_R else None
-        return R, E_win
-
     def run(xr, xi, cr, ci, Ar, Ai, *wb_extra):
         if wb_cssm or wb_auto:
             # Coherent fusion: focused covariance → the full narrowband
@@ -541,87 +386,32 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                         peak_angles=pangs, root_music_angles=None,
                         esprit_angles=None, covariance=None,
                         subspace_residual=None)
-        if fast_cov:
-            # Planes input + fast path: the XLA stacked-Gram covariance
-            # reads split planes NATIVELY; embed to E and join the
-            # fused downstream (squared subspace + fused scan+peaks).
-            # An on-device interleave pass (to_interleaved) measured
-            # 47 ms at T=2²⁴ — the planes→interleaved relayout is the
-            # one thing this backend does badly; interleaved data
-            # should enter via jitted_ilv / the zero-copy c64 view.
-            from doa_tpu.cpx import embed_hermitian
-            R = compute_covariances_cpx(
-                Cpx(xr, xi), cfg, correction=Cpx(cr, ci),
-                cov_impl="xla", interpret=interp)
-            E_win = embed_hermitian(R)
-            return _estimate(R if need_R else None, E_win, Ar, Ai)
         R = compute_covariances_cpx(Cpx(xr, xi), cfg,
-                                    correction=Cpx(cr, ci),
-                                    cov_impl=cov_impl, interpret=interp)
+                                    correction=Cpx(cr, ci))
+        if fast_cov:
+            # planes input on the fast path: embed and join the
+            # interleaved path's warm-start subspace stage
+            from doa_tpu.cpx import embed_hermitian
+            return _estimate(R if need_R else None, embed_hermitian(R),
+                             Ar, Ai)
         return _estimate(R, None, Ar, Ai)
 
     def run_ilv(xil, cr, ci, Ar, Ai, *wb_extra):
         """Interleaved-ingest entry (fast paths only): xil is the raw
-        c64 capture buffer viewed as f32[T/TPACK, 2N·TPACK] — zero host
-        preprocessing, no deinterleave pass on device either. On the
-        wideband fast path wb_extra = (K channelizer, extra_re,
-        extra_im) with extra the steering stack (incoherent/cssm_auto)
-        or focusing matrices (cssm)."""
-        if not wb:
-            R, E_win = _fast_cov(xil, cr, ci)
-            return _estimate(R, E_win, Ar, Ai)
-        from doa_tpu.cpx import unembed_hermitian
-        from doa_tpu.ops.pallas.wideband_cov import (
-            wideband_cov_embedded_pallas)
-        Kd, Xr, Xi = wb_extra
-        E_sub = wideband_cov_embedded_pallas(
-            xil, Kd, cr, ci, N=N_el, F=cfg.wideband.num_subbands,
-            snapshot_size=cfg.snapshot_size, overlap=cfg.overlap,
-            interpret=interp)
-        if wb_cssm or wb_auto:
-            R_sub = unembed_hermitian(E_sub)
-            if wb_auto:
-                from doa_tpu.ops.wideband import (
-                    auto_focused_covariance_cpx)
-                R = auto_focused_covariance_cpx(
-                    None, Cpx(Xr, Xi), None, cfg, R_sub=R_sub)
-            else:
-                from doa_tpu.ops.wideband import cssm_covariance_cpx
-                R = cssm_covariance_cpx(None, None, Cpx(Xr, Xi), cfg,
-                                        R_sub=R_sub)
-            if cfg.avg_method == AvgMethod.FORWARD_BACKWARD:
-                R = cpx_ops.forward_backward_cpx(R)
-            if cfg.smoothing.enabled:
-                R = cpx_ops.spatial_smooth_cpx(
-                    R, cfg.smoothing.subarray_size)
-            return _estimate(R, None, Ar, Ai)
-        from doa_tpu.ops.wideband import (
-            wideband_music_cpx, wideband_music_hierarchical_cpx)
-        spectra, pvals, pangs = {}, {}, {}
-        if wb_tops:
-            from doa_tpu.ops.tops import wideband_tops_cpx
-            P = wideband_tops_cpx(None, Cpx(Xr, Xi), None, cfg,
-                                  E_sub=E_sub)
-            v, l = _peaks(P)
-            spectra[wb_key] = P
-        elif scan_mode == "hierarchical" and use_power:
-            v, l = wideband_music_hierarchical_cpx(
-                None, Cpx(Xr, Xi), None, cfg, cfg.num_max_vals,
-                x_rng=x_rng, grid2d=cfg.grid2d if is_2d else None,
-                E_sub=E_sub)
-        else:
-            P = wideband_music_cpx(None, Cpx(Xr, Xi), None, cfg,
-                                   E_sub=E_sub)
-            v, l = _peaks(P)
-            spectra[wb_key] = P
-        pvals[wb_key] = v
-        pangs[wb_key] = l
-        return dict(spectra=spectra, peak_values=pvals,
-                    peak_angles=pangs, root_music_angles=None,
-                    esprit_angles=None, covariance=None,
-                    subspace_residual=None)
+        c64 capture buffer viewed as [T/TPACK, 2N·TPACK] (f32, or a
+        bf16/int8 ingest buffer) — no host preprocessing."""
+        if wb:
+            x = deinterleave(xil, N_el)
+            return run_planes(x.re, x.im, cr, ci, Ar, Ai, *wb_extra)
+        R, E_win = cov_embedded(
+            xil, cr, ci, N=N_el, snapshot_size=cfg.snapshot_size,
+            overlap=cfg.overlap,
+            fb=cfg.avg_method == AvgMethod.FORWARD_BACKWARD,
+            compute_dtype=jnp.dtype(cfg.cov_dtype))
+        return _estimate(R if need_R else None, E_win, Ar, Ai)
 
     from doa_tpu.cpx import f32_matmuls
+    run_planes = run
     run_ilv_py = run_ilv
     run = jax.jit(f32_matmuls(run),
                   donate_argnums=(0, 1) if donate_inputs else ())
@@ -666,15 +456,14 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
     def scan_capture(blocks, correction=None):
         """blocks: f32[M, T_blk/TPACK, 2N·TPACK] pre-staged interleaved
         blocks (device or host) → dict of stacked (M, B_blk, ...) peak
-        results. Requires a fused fast path, TPACK | carry, and
+        results. Requires an interleaved path, TPACK | carry, and
         hop | T_blk (so each block consumes a whole number of hops and
         the carry length is invariant — continuous-stream framing).
         Wideband additionally needs F | overlap (subband-domain framing
         must align with the input-domain carry)."""
         if not (fast_cov or wb_fast):
-            raise ValueError("scan_capture requires a fused Pallas "
-                             "path (cov_impl='pallas'/auto on TPU, "
-                             "power subspace, no smoothing)")
+            raise ValueError("scan_capture requires an interleaved "
+                             "path (power subspace, no smoothing)")
         if wb_fast and cfg.overlap % cfg.wideband.num_subbands:
             raise ValueError("wideband scan_capture needs subbands | "
                              "overlap (else the effective subband hop "
@@ -690,7 +479,7 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
         cr, ci = _correction_planes(cfg.geometry.num_elements,
                                     correction)
         return scan_capture_jit(blocks, cr, ci, A_re_d, A_im_d,
-                                *(wb_ilv_args if wb_fast else ()))
+                                *(wb_args if wb_fast else ()))
 
     # windows of block 0 that reference the zero prefix (drop them)
     scan_capture.prefix_windows = _carry_samples // cfg.hop
@@ -725,7 +514,7 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
                 from doa_tpu.io.native import quantize_interleaved_int8
                 xil_d = quantize_interleaved_int8(xil_d)[0]
             out = run_ilv(xil_d, cr, ci, A_re_d, A_im_d,
-                          *(wb_ilv_args if wb_fast else ()))
+                          *(wb_args if wb_fast else ()))
             return DoaResult(**out)
         if isinstance(x, Cpx):
             xr, xi = x.re, x.im
@@ -738,12 +527,13 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
         return DoaResult(**out)
 
     def call_interleaved(xil, correction=None) -> DoaResult:
-        """xil: f32[T/TPACK, 2N·TPACK] (device or host) — production
-        ingest entry; requires a fused fast path (raises otherwise)."""
+        """xil: [T/TPACK, 2N·TPACK] (device or host; f32, bf16 or int8)
+        — production ingest entry; requires an interleaved path
+        (raises otherwise)."""
         if not (fast_cov or wb_fast):
-            raise ValueError("interleaved entry requires the fused "
-                             "Pallas path (cov_impl='pallas'/auto on "
-                             "TPU, power subspace, no smoothing)")
+            raise ValueError("interleaved entry requires an "
+                             "interleaved path (power subspace, no "
+                             "smoothing)")
         cr, ci = _correction_planes(cfg.geometry.num_elements, correction)
         xil = jnp.asarray(xil)
         if (fast_cov and cfg.cov_dtype == "int8"
@@ -754,12 +544,11 @@ def build_pipeline_tpu(cfg: DoaConfig, refine_peaks: bool = True,
             xil = quantize_interleaved_int8(xil)[0]
         return DoaResult(**run_ilv(xil, cr, ci,
                                    A_re_d, A_im_d,
-                                   *(wb_ilv_args if wb_fast else ())))
+                                   *(wb_args if wb_fast else ())))
 
     call.jitted = run
     call.jitted_ilv = run_ilv if (fast_cov or wb_fast) else None
     call.wb_args = wb_args if wb else None
-    call.wb_ilv_args = wb_ilv_args if wb_fast else None
     call.wb_fast = wb_fast
     call.interleaved = call_interleaved
     call.scan_capture = scan_capture

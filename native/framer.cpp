@@ -1,7 +1,7 @@
 // Host-side ingest framer: the one genuinely native-hot path of the
 // framework (SURVEY §7.1). At the north-star operating point the host
 // must deinterleave ≥1.28 GB/s of complex64 multichannel IQ into the
-// f32 re/im planes the TPU pipeline consumes; numpy's .real/.imag copies
+// f32 re/im planes the planes pipeline consumes; numpy's .real/.imag copies
 // make two extra passes and fight the GIL. This library does the
 // split (+ optional overlap-tail prepend) in one multithreaded pass.
 //

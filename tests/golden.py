@@ -4,7 +4,7 @@ These play the role of the reference repo's offline-generated golden vectors
 (SURVEY.md §4: upstream qa_*.py tests compare against hardcoded arrays
 generated MATLAB-style). Every doa_tpu op must match these to tolerance.
 All conventions (steering-vector sign, normalization, FB averaging, root
-selection) are pinned HERE; doa_tpu implements the same math TPU-natively.
+selection) are pinned HERE; doa_tpu implements the same math on device.
 
 Conventions (documented in doa_tpu.ops.steering as well):
   * ULA with element positions p_k = k * d (k = 0..N-1), d = norm_spacing
@@ -311,6 +311,81 @@ def find_local_max(P, num_max_vals: int, x_min: float, x_max: float):
             vals[b, take:] = vals[b, 0]
             locs[b, take:] = locs[b, 0]
     return vals, locs
+
+
+def subband_covariances(x, num_subbands: int, snapshot_size: int,
+                        overlap: int = 0):
+    """Wideband channelizer + per-subband covariances: F-point DFT of
+    each F-sample frame (W[f, t] = exp(-2πj f t / F)), then windowed
+    covariances of every subband stream with S/F samples per window and
+    the overlap scaled by 1/F → (F, B, N, N)."""
+    x = np.asarray(x)
+    F = num_subbands
+    M = x.shape[0] // F
+    xs = np.fft.fft(x[: M * F].reshape(M, F, -1), axis=1)   # (M, F, N)
+    S_sub = snapshot_size // F
+    hop_sub = max(S_sub - overlap // F, 1)
+    return np.stack([sample_covariance(frame_samples(
+        xs[:, f], S_sub, S_sub - hop_sub)) for f in range(F)])
+
+
+def wideband_music_spectrum(R_sub, A_stack, num_sources: int):
+    """Incoherent wideband MUSIC: mean over subbands of the
+    max-normalized per-subband spectra. R_sub (F, B, N, N), A_stack
+    (F, G, N) → (B, G)."""
+    return np.mean([music_spectrum(R_sub[f], A_stack[f], num_sources)
+                    for f in range(len(R_sub))], axis=0)
+
+
+def _refine_frac(prof, i: int) -> float:
+    """Bin index i of a positive 1-D profile + the sub-bin offset of the
+    parabola through its three reciprocals (clipped to ±0.5; edge bins
+    are not refined)."""
+    G = len(prof)
+    if i == 0 or i == G - 1:
+        return float(i)
+    tiny = np.finfo(np.float32).tiny
+    qm, q0, qp = (1.0 / max(float(prof[j]), tiny) for j in (i - 1, i, i + 1))
+    den = qm - 2.0 * q0 + qp
+    d = 0.5 * (qm - qp) / den if den != 0 else 0.0
+    return i + float(np.clip(d, -0.5, 0.5))
+
+
+def find_local_max_2d(P, num_max_vals: int, az_rng, el_rng,
+                      refine: bool = False):
+    """Reference 2-D peak extraction over P: (B, G_az, G_el).
+
+    A bin is a peak iff it exceeds its up/left neighbours and is >= its
+    down/right ones (edges excluded). Peaks are ranked by value, ties by
+    flat index; rows with fewer peaks pad with the best one, rows with
+    none take the global argmax. refine: separable reciprocal-space
+    parabola along az (the column) and el (the row) through each peak.
+    → (values, az, el) each (B, num_max_vals)."""
+    P = np.asarray(P, np.float64)
+    B, Ga, Ge = P.shape
+    k = num_max_vals
+    vals, az, el = (np.zeros((B, k)) for _ in range(3))
+    da = (az_rng[1] - az_rng[0]) / (Ga - 1)
+    de = (el_rng[1] - el_rng[0]) / (Ge - 1)
+    for b in range(B):
+        p = P[b]
+        c = p[1:-1, 1:-1]
+        is_max = np.zeros((Ga, Ge), dtype=bool)
+        is_max[1:-1, 1:-1] = ((c > p[:-2, 1:-1]) & (c >= p[2:, 1:-1])
+                              & (c > p[1:-1, :-2]) & (c >= p[1:-1, 2:]))
+        flat = np.flatnonzero(is_max)
+        if len(flat) == 0:
+            flat = np.array([int(np.argmax(p))])
+        flat = flat[np.argsort(-p.ravel()[flat], kind="stable")]
+        flat = np.concatenate([flat[:k], np.repeat(flat[:1], k)])[:k]
+        for j, f in enumerate(flat):
+            ia, ie = divmod(int(f), Ge)
+            vals[b, j] = p[ia, ie]
+            fa = _refine_frac(p[:, ie], ia) if refine else ia
+            fe = _refine_frac(p[ia, :], ie) if refine else ie
+            az[b, j] = az_rng[0] + fa * da
+            el[b, j] = el_rng[0] + fe * de
+    return vals, az, el
 
 
 # ---------------------------------------------------------------------------

@@ -152,7 +152,7 @@ def test_pipeline_complex_path_ura_peaks_in_degrees():
     assert ang.shape[-1] == 2  # (az, el) pairs
     assert np.all(np.abs(ang[..., 0] - truth[0]) < 4.0)
     assert np.all(np.abs(ang[..., 1] - truth[1]) < 4.0)
-    # exact same units as the TPU path
+    # exact same units as the split-complex path
     res_t = build_pipeline_tpu(cfg)(x)
     ang_t = np.asarray(res_t.peak_angles["music"])
     np.testing.assert_allclose(ang, ang_t, atol=0.2)

@@ -138,7 +138,7 @@ def test_beamspace_config_validation():
                      if k != "num_sources"})
     with pytest.raises(ValueError, match="dense"):
         DoaConfig(beamspace=BeamspaceSpec(num_beams=8),
-                  scan_mode="pallas", **base)
+                  scan_mode="hierarchical", **base)
     with pytest.raises(ValueError, match="ULA"):
         DoaConfig(geometry=ArrayGeometry(kind="ura", num_elements=16,
                                          shape=(4, 4),

@@ -98,7 +98,7 @@ def test_config_validation_errors():
 
 
 def test_cli_mode_overrides(tmp_path, capsys):
-    """--scan-mode/--cov-impl/--subspace/--subspace-check reach the
+    """--scan-mode/--subspace/--subspace-check reach the
     config (the new round-2 knobs are user-switchable, not just API)."""
     cap = str(tmp_path / "cap.npz")
     _run(capsys, "simulate", "--preset", "c2_ula8_2src",

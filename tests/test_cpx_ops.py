@@ -1,6 +1,6 @@
-"""Parity: real-valued (split re/im) TPU path vs the jnp-complex reference
-ops. This is the correctness gate for the complex-free backend path and the
-layout the Pallas kernels use."""
+"""Parity: real-valued (split re/im) path vs the jnp-complex reference
+ops. This is the correctness gate for the split-complex production
+path."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -81,11 +81,11 @@ def test_root_min_norm_matches_golden_and_truth():
     np.testing.assert_allclose(th_g.mean(0), [55.0, 100.0], atol=0.5)
 
 
-@pytest.mark.parametrize("scan_mode", ["dense", "pallas"])
+@pytest.mark.parametrize("scan_mode", ["dense", "hierarchical"])
 def test_min_norm_in_tpu_pipeline(scan_mode):
     """End-to-end: MIN_NORM alongside MUSIC in build_pipeline_tpu on
-    both scan modes (pallas gates the MUSIC scan only; min-norm rides
-    the materialized V_emb)."""
+    both scan modes (the scan mode gates the MUSIC scan only; min-norm
+    rides the warm-start V_emb of the interleaved path)."""
     from doa_tpu.pipeline_tpu import build_pipeline_tpu
 
     cfg = DoaConfig(
@@ -94,8 +94,7 @@ def test_min_norm_in_tpu_pipeline(scan_mode):
         snapshot_size=512, num_sources=2,
         estimators=(Estimator.MUSIC, Estimator.MIN_NORM),
         grid=GridSpec1D(num_points=512), num_max_vals=2,
-        scan_mode=scan_mode,
-        cov_impl="pallas" if scan_mode == "pallas" else "auto")
+        scan_mode=scan_mode)
     x = golden.synthetic_ula_iq([60.0, 110.0], 8, 0.5, 16384,
                                 snr_db=10, seed=11).astype(np.complex64)
     res = build_pipeline_tpu(cfg)(x)
@@ -107,7 +106,7 @@ def test_min_norm_in_tpu_pipeline(scan_mode):
 
 def test_min_norm_in_complex_pipeline_and_eigh_path():
     """Complex/CPU pipeline parity + the eigh (use_power=False) branch
-    of the TPU pipeline."""
+    of the split-complex pipeline."""
     from doa_tpu.pipeline import build_pipeline
     from doa_tpu.pipeline_tpu import build_pipeline_tpu
 

@@ -6,8 +6,9 @@ Unlike a toy psum check, the workers run the PRODUCTION
 `build_sharded_pipeline` (halo ppermute over the snap axis + grid-TP
 all_gather + peaks) over a 2-process × (4 snap × 2 grid) mesh — both
 collective families cross the process boundary — and the assembled
-global peak angles must match the single-process TPU-path pipeline on
-the same capture.
+global peak angles must match the single-process pipeline on the same
+capture. Every worker is forced onto the CPU: several JAX processes
+must never share one GPU (each reserves most of its memory).
 """
 
 import json
@@ -68,10 +69,11 @@ x_full = golden.synthetic_ula_iq([62.0, 118.0], 8, 0.5, T_total,
 T_local = T_total // nproc
 x_local = x_full[pid * T_local:(pid + 1) * T_local]
 
-from doa_tpu.io.native import split_c64
-xr_l, xi_l = split_c64(np.ascontiguousarray(x_local))
-xr = host_local_to_global(ctx, xr_l)
-xi = host_local_to_global(ctx, xi_l)
+from doa_tpu.ops.interleaved import interleave_factor
+tp = interleave_factor(8)
+xil_l = np.ascontiguousarray(x_local.astype(np.complex64)).view(
+    np.float32).reshape(T_local // tp, -1)
+xil = host_local_to_global(ctx, xil_l)
 
 A_host, _ = _steering_matrix(cfg)
 Ar = replicated_host_to_global(
@@ -82,7 +84,8 @@ cr = replicated_host_to_global(ctx, np.ones(8, np.float32), P())
 ci = replicated_host_to_global(ctx, np.zeros(8, np.float32), P())
 
 pipe = build_sharded_pipeline(cfg, mesh)
-out = pipe.jitted(xr, xi, cr, ci, Ar, Ai)
+assert pipe.fast       # the interleaved ingest path, rows sharded
+out = pipe.jitted(xil, cr, ci, Ar, Ai)
 
 angles = out["peak_angles_music"]
 shards = []
@@ -130,7 +133,7 @@ def test_two_process_sharded_pipeline_parity(tmp_path):
             got[start:start + len(rows)] = rows
     assert not np.isnan(got[:valid]).any(), "missing shard rows"
 
-    # Single-process reference: the TPU-path pipeline on the same capture.
+    # Single-process reference: the split-complex pipeline on the same capture.
     import dataclasses
     from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
                                  GridSpec1D)

@@ -1,4 +1,4 @@
-"""Parity: doa_tpu ops vs the golden numpy reference (the TPU analog of the
+"""Parity: doa_tpu ops vs the golden numpy reference (the analog of the
 reference's qa_* golden-vector tests, SURVEY §4)."""
 
 import numpy as np

@@ -1,21 +1,21 @@
-"""Exact-parity tests for the fused 2-D peaks kernel
-(ops/pallas/peaks2d.py) against ops.peaks.find_local_max_2d — the
-XLA implementation is the semantic reference (itself golden-pinned).
-Interpret mode on the CPU backend (conftest)."""
+"""Parity tests for the 2-D peak extraction (ops.peaks.find_local_max_2d)
+against the numpy reference golden.find_local_max_2d: random spectra,
+edge cases (no interior maximum, ties, boundary peaks, plateaus) and
+MUSIC-shaped spectra at the c5 grid, with and without refinement."""
 
 import numpy as np
 import pytest
 
-from doa_tpu.ops.pallas.peaks2d import find_local_max_2d_pallas
+import golden
 from doa_tpu.ops.peaks import find_local_max_2d
 
 
 def _check(P, k, refine):
     az_rng, el_rng = (-90.0, 90.0), (0.0, 90.0)
-    v_ref, az_ref, el_ref = find_local_max_2d(
+    v_ref, az_ref, el_ref = golden.find_local_max_2d(
         P, k, az_rng, el_rng, refine=refine)
-    v_k, az_k, el_k = find_local_max_2d_pallas(
-        P, k, az_rng, el_rng, refine=refine, interpret=True)
+    v_k, az_k, el_k = find_local_max_2d(
+        P, k, az_rng, el_rng, refine=refine)
     np.testing.assert_allclose(np.asarray(v_k), np.asarray(v_ref),
                                rtol=1e-6)
     np.testing.assert_allclose(np.asarray(az_k), np.asarray(az_ref),
@@ -74,35 +74,31 @@ def test_pipeline_c5_shape_parity():
 
 
 def test_peaks_impl_knob_pipeline():
-    """ADVICE r4: peaks_impl decouples the 2-D peaks kernel from
-    cov_impl — 'xla' keeps the fused covariance path but opts out of
-    peaks2d, producing identical peaks; 'pallas' forces the kernel."""
-    import dataclasses
-
+    """The URA pipeline's 2-D peaks equal the golden peaks of its own
+    returned spectrum (peak extraction is exact: no knob selects
+    another implementation)."""
     from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
                                  GridSpec2D)
     from doa_tpu.io import SourceSpec, synth_ura_iq
     from doa_tpu.pipeline_tpu import build_pipeline_tpu
 
+    g2 = GridSpec2D(num_az=25, num_el=13)
     cfg = DoaConfig(
         geometry=ArrayGeometry(kind="ura", num_elements=16,
                                norm_spacing=0.5, shape=(4, 4)),
         snapshot_size=128, num_sources=1,
-        estimators=(Estimator.MUSIC,),
-        grid2d=GridSpec2D(num_az=25, num_el=13),
-        num_max_vals=1, cov_impl="pallas")
+        estimators=(Estimator.MUSIC,), grid2d=g2, num_max_vals=1)
     x = synth_ura_iq(
         [SourceSpec(az_deg=-20.0, el_deg=30.0, freq_norm=0.1)],
         (4, 4), 0.5, 64 * 128, snr_db=10, seed=5).astype(np.complex64)
-    outs = {}
-    for impl in ("auto", "xla", "pallas"):
-        res = build_pipeline_tpu(
-            dataclasses.replace(cfg, peaks_impl=impl),
-            return_spectra=False)(x)
-        outs[impl] = (np.asarray(res.peak_values["music"]),
-                      np.asarray(res.peak_angles["music"]))
-    for impl in ("xla", "pallas"):
-        np.testing.assert_allclose(outs[impl][0], outs["auto"][0],
-                                   rtol=1e-6)
-        np.testing.assert_allclose(outs[impl][1], outs["auto"][1],
-                                   atol=1e-5)
+    res = build_pipeline_tpu(cfg)(x)
+    P = np.asarray(res.spectra["music"]).reshape(-1, g2.num_az, g2.num_el)
+    v, az, el = golden.find_local_max_2d(
+        P, 1, (g2.az_lo_deg, g2.az_hi_deg), (g2.el_lo_deg, g2.el_hi_deg),
+        refine=True)
+    ang = np.asarray(res.peak_angles["music"])
+    np.testing.assert_allclose(np.asarray(res.peak_values["music"]), v,
+                               rtol=1e-6)
+    np.testing.assert_allclose(ang[..., 0], az, atol=1e-5)
+    np.testing.assert_allclose(ang[..., 1], el, atol=1e-5)
+    assert np.abs(np.median(az) + 20.0) < 2.0, np.median(az)

@@ -1,5 +1,5 @@
 """Power-iteration signal subspace vs exact eigh: projector parity,
-spectrum parity, and end-to-end pipeline parity (the fast TPU path)."""
+spectrum parity, and end-to-end pipeline parity (the interleaved path)."""
 
 import dataclasses
 
@@ -241,8 +241,7 @@ def test_warm_start_matches_cold_narrowband():
                                norm_spacing=0.5),
         snapshot_size=1024, num_sources=2,
         estimators=(Estimator.MUSIC,),
-        grid=GridSpec1D(num_points=1024), num_max_vals=2,
-        cov_impl="pallas")
+        grid=GridSpec1D(num_points=1024), num_max_vals=2)
     for imb_db in (0.0, 20.0):
         amp = 10 ** (-imb_db / 20)
         # B = 48 ≥ 32 so the warm start actually engages (it is the
@@ -283,8 +282,7 @@ def test_warm_start_abrupt_scene_change():
                                norm_spacing=0.5),
         snapshot_size=1024, num_sources=2,
         estimators=(Estimator.MUSIC,),
-        grid=GridSpec1D(num_points=1024), num_max_vals=2,
-        cov_impl="pallas")
+        grid=GridSpec1D(num_points=1024), num_max_vals=2)
     half = 24 * 1024
     xa = synth_ula_iq(
         [SourceSpec(theta_deg=60.0, freq_norm=0.1),
@@ -521,8 +519,7 @@ def test_escalation_counts_in_pipeline_result():
                                norm_spacing=0.5),
         snapshot_size=256, num_sources=2,
         estimators=(Estimator.MUSIC,),
-        grid=GridSpec1D(num_points=256), num_max_vals=2,
-        cov_impl="pallas")
+        grid=GridSpec1D(num_points=256), num_max_vals=2)
     x = synth_ula_iq([SourceSpec(theta_deg=60.0),
                       SourceSpec(theta_deg=110.0, freq_norm=0.3)],
                      8, 0.5, 64 * 256, snr_db=10,

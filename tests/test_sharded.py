@@ -58,7 +58,7 @@ def test_sharded_matches_single_device_exact(spec):
 
 
 def test_sharded_power_matches_single_device_power():
-    """power path (the TPU default): sharded == single-device TPU path."""
+    """power path (the default): sharded == single-device pipeline."""
     x = _capture()
     mesh = make_mesh(MeshSpec(4, 2))
     out = build_sharded_pipeline(CFG, mesh)(x)
@@ -171,11 +171,9 @@ def test_sharded_wideband_ep_parity(spec):
 
 @pytest.mark.parametrize("spec", [MeshSpec(4, 2), MeshSpec(2, 4)])
 def test_sharded_wideband_fast_parity(spec):
-    """The Pallas fused-FFT front-end under shard_map (cov_impl=
-    'pallas'; per-device all-F kernel + local-subband slice) must match
-    the XLA EP-sharded path and the single-device pipeline."""
-    import dataclasses
-
+    """The interleaved wideband ingest under shard_map (per-device
+    deinterleave of the local block, EP over subbands) must match the
+    single-device pipeline's interleaved and planes routes."""
     from doa_tpu.configs import WidebandSpec
     from doa_tpu.io.synthetic import synth_wideband_ula_iq
 
@@ -194,18 +192,20 @@ def test_sharded_wideband_fast_parity(spec):
         fractional_bw=0.1).astype(np.complex64)
     c = np.exp(1j * np.linspace(0, 0.4, 8)).astype(np.complex64)
     mesh = make_mesh(spec)
-    pipe_fast = build_sharded_pipeline(
-        dataclasses.replace(cfg, cov_impl="pallas"), mesh)
+    pipe_fast = build_sharded_pipeline(cfg, mesh)
     assert pipe_fast.fast
     out_f = pipe_fast(x, correction=c)
-    out_x = build_sharded_pipeline(cfg, mesh)(x, correction=c)
+    single = build_pipeline_tpu(cfg)
+    assert single.wb_fast
+    out_x = single(x, correction=c)
     np.testing.assert_allclose(np.asarray(out_f["spectrum_music"]),
-                               np.asarray(out_x["spectrum_music"]),
+                               np.asarray(out_x.spectra["music"]),
                                rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(
         np.asarray(out_f["peak_angles_music"]),
-        np.asarray(out_x["peak_angles_music"]), atol=5e-3)
-    ref = build_pipeline_tpu(cfg)(x, correction=c)
+        np.asarray(out_x.peak_angles["music"]), atol=5e-3)
+    from doa_tpu.cpx import Cpx
+    ref = single(Cpx.from_complex(x), correction=c)
     np.testing.assert_allclose(
         np.sort(np.asarray(out_f["peak_angles_music"]), -1),
         np.sort(np.asarray(ref.peak_angles["music"]), -1), atol=0.05)
@@ -247,7 +247,7 @@ def test_sharded_wideband_cssm_parity(spec):
 def test_sharded_new_estimators_parity():
     """MIN_NORM (grid-sharded scan, zero extra comms) and
     UNITARY_ESPRIT (snap-sharded grid-free) in the sharded pipeline
-    vs the single-device TPU pipeline."""
+    vs the single-device pipeline."""
     cfg = dataclasses.replace(
         CFG, estimators=(Estimator.MUSIC, Estimator.MIN_NORM,
                          Estimator.UNITARY_ESPRIT))
@@ -265,34 +265,38 @@ def test_sharded_new_estimators_parity():
 
 
 def test_sharded_halo_impl_knob():
-    """cfg.halo_impl plumbs through build_sharded_pipeline to
-    ops.pallas.ring.halo_exchange: "xla" (explicit) must match the
-    default bit-exactly, and "pallas" must BUILD the full production
-    program on the 8-device mesh with identical output shapes —
-    executing the remote-DMA kernel needs real ICI (the TPU-gated test
-    in test_ring_pallas.py covers that)."""
-    x = _capture()
+    """sharded.halo_exchange (lax.ppermute under shard_map): every time
+    shard gets its right neighbor's first `overlap` rows appended, the
+    last shard a zero halo — and the sharded pipeline built on it is
+    deterministic across builds."""
+    from jax.sharding import PartitionSpec as P
+
+    from doa_tpu.parallel.mesh import SNAP_AXIS
+    from doa_tpu.parallel.sharded import halo_exchange
+
     mesh = make_mesh(MeshSpec(4, 2))
+    rows, ov = 16, 5
+    xr = np.arange(4 * rows * 3, dtype=np.float32).reshape(4 * rows, 3)
+    got = np.asarray(jax.jit(jax.shard_map(
+        lambda b: halo_exchange(b, ov, SNAP_AXIS), mesh=mesh,
+        in_specs=(P(SNAP_AXIS, None),), out_specs=P(SNAP_AXIS, None),
+        check_vma=False))(jnp.asarray(xr)))
+    got = got.reshape(4, rows + ov, 3)
+    for d in range(4):
+        np.testing.assert_array_equal(got[d, :rows],
+                                      xr[d * rows:(d + 1) * rows])
+        halo = (xr[(d + 1) * rows:(d + 1) * rows + ov] if d < 3
+                else np.zeros((ov, 3), np.float32))
+        np.testing.assert_array_equal(got[d, rows:], halo)
+    x = _capture()
     B_valid = num_valid_windows(x.shape[0], CFG)
-    out_default = build_sharded_pipeline(CFG, mesh)(x)
-    out_xla = build_sharded_pipeline(
-        dataclasses.replace(CFG, halo_impl="xla"), mesh)(x)
-    for k in out_default:
-        np.testing.assert_array_equal(
-            np.asarray(out_default[k])[:B_valid],
-            np.asarray(out_xla[k])[:B_valid])
-    pipe_p = build_sharded_pipeline(
-        dataclasses.replace(CFG, halo_impl="pallas"), mesh)
-    T, N = x.shape
-    G = CFG.grid.num_points
-    s = jax.ShapeDtypeStruct
-    abstract = jax.eval_shape(
-        pipe_p.jitted,
-        s((T, N), jnp.float32), s((T, N), jnp.float32),
-        s((N,), jnp.float32), s((N,), jnp.float32),
-        s((G, N), jnp.float32), s((G, N), jnp.float32))
-    for k, v in out_default.items():
-        assert abstract[k].shape == np.asarray(v).shape, k
+    out_a = build_sharded_pipeline(CFG, mesh)(x)
+    out_b = build_sharded_pipeline(CFG, mesh)(x)
+    for k in out_a:
+        a, b = np.asarray(out_a[k]), np.asarray(out_b[k])
+        if a.ndim:
+            a, b = a[:B_valid], b[:B_valid]
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("spec", [MeshSpec(4, 2), MeshSpec(2, 4)])
@@ -354,13 +358,12 @@ def test_sharded_cssm_auto_parity():
 @pytest.mark.parametrize("spec", [MeshSpec(8, 1), MeshSpec(4, 2),
                                   MeshSpec(2, 4)])
 def test_sharded_fast_narrowband_parity(spec):
-    """The fused fast path under shard_map (VERDICT r4 missing #1):
-    interleaved ingest + Pallas embedded-covariance kernel + warm
-    subspaces from the psum'd global capture mean + fused Pallas scan
-    into the O(k) merge — must match the single-device fused pipeline
-    at every mesh shape, with overlap > 0 and a calibration
-    correction."""
-    cfg = dataclasses.replace(CFG, cov_impl="pallas")
+    """The interleaved path under shard_map: interleaved ingest +
+    embedded-covariance Gram + warm subspaces from the psum'd global
+    capture mean + scan into the O(k) merge — must match the
+    single-device interleaved pipeline at every mesh shape, with
+    overlap > 0 and a calibration correction."""
+    cfg = CFG
     x = _capture().astype(np.complex64)
     c = np.exp(1j * np.linspace(0, 0.3, 8)).astype(np.complex64)
     mesh = make_mesh(spec)
@@ -385,7 +388,7 @@ def test_sharded_fast_narrowband_parity(spec):
 def test_sharded_fast_gridfree_and_minnorm():
     """Grid-free estimators + Min-Norm on the fast sharded path."""
     cfg = dataclasses.replace(
-        CFG, cov_impl="pallas",
+        CFG,
         estimators=(Estimator.MUSIC, Estimator.ROOT_MUSIC,
                     Estimator.ESPRIT, Estimator.MIN_NORM))
     x = _capture().astype(np.complex64)
@@ -454,13 +457,11 @@ def test_local_peaks_merge_2d_parity():
 
 
 def test_sharded_fast_peaks_only_mode():
-    """return_spectra=False (the production streaming shape): on the
-    fast path with an unsharded grid the scan+peaks kernel fuses (no
-    spectrum leaves VMEM) — peaks must equal the spectra-mode merge at
-    (8,1) AND the single-chip fused streaming pipeline; grid-sharded
-    meshes keep the merge, minus the spectrum outputs."""
-    cfg = dataclasses.replace(CFG, cov_impl="pallas",
-                              estimators=(Estimator.MUSIC,))
+    """return_spectra=False (the production streaming shape): peaks
+    must equal the spectra-mode merge AND the single-device streaming
+    pipeline at (8,1) and grid-sharded meshes, with no spectrum
+    outputs."""
+    cfg = dataclasses.replace(CFG, estimators=(Estimator.MUSIC,))
     x = _capture().astype(np.complex64)
     B_valid = num_valid_windows(x.shape[0], cfg)
     ref = build_pipeline_tpu(cfg, return_spectra=False)(x)

@@ -173,8 +173,8 @@ def test_calibration_roundtrip_extensionless_path(tmp_path):
 
 
 def test_streaming_wideband_matches_offline():
-    """StreamingDriver over a WIDEBAND pipeline (fast Pallas front-end,
-    interpret mode): streamed blocks must reproduce the offline window
+    """StreamingDriver over a WIDEBAND pipeline (interleaved ingest
+    route): streamed blocks must reproduce the offline window
     sequence. overlap=128 with F=8 keeps subband-domain framing aligned
     across block boundaries (hop_sub·F = hop divides block and
     overlap)."""
@@ -191,7 +191,7 @@ def test_streaming_wideband_matches_offline():
             estimators=(Estimator.MUSIC,),
             grid=GridSpec1D(num_points=181),
             wideband=WidebandSpec(num_subbands=8, fractional_bw=0.1),
-            num_max_vals=2, cov_impl="pallas")
+            num_max_vals=2)
         pipe = build_pipeline_tpu(cfg, return_spectra=False)
         assert pipe.wb_fast
         T, blk = 4096, 1024
@@ -231,7 +231,7 @@ def test_scan_capture_wideband_matches_per_block():
         estimators=(Estimator.MUSIC,),
         grid=GridSpec1D(num_points=181),
         wideband=WidebandSpec(num_subbands=F, fractional_bw=0.1),
-        num_max_vals=2, cov_impl="pallas")
+        num_max_vals=2)
     pipe = build_pipeline_tpu(cfg, return_spectra=False)
     assert pipe.wb_fast
     hop = S - OV
@@ -242,7 +242,7 @@ def test_scan_capture_wideband_matches_per_block():
                     bandwidth_norm=0.5)],
         N, 0.5, M * T_blk, fractional_bw=0.1, snr_db=15,
         seed=3).astype(np.complex64)
-    from doa_tpu.ops.pallas.cov_embedded import interleave_factor
+    from doa_tpu.ops.interleaved import interleave_factor
     tp = interleave_factor(N)
     xil = np.ascontiguousarray(x).view(np.float32).reshape(
         M * T_blk // tp, 2 * N * tp)
@@ -267,7 +267,7 @@ def test_scan_capture_matches_per_block():
     from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
                                  GridSpec1D)
     from doa_tpu.io import SourceSpec, synth_ula_iq
-    from doa_tpu.ops.pallas.cov_embedded import to_interleaved
+    from doa_tpu.ops.interleaved import to_interleaved
     from doa_tpu.pipeline_tpu import build_pipeline_tpu
     from doa_tpu.cpx import Cpx
 
@@ -277,8 +277,7 @@ def test_scan_capture_matches_per_block():
                                norm_spacing=0.5),
         snapshot_size=S, overlap=OV, num_sources=2,
         estimators=(Estimator.MUSIC,),
-        grid=GridSpec1D(num_points=361), num_max_vals=2,
-        scan_mode="pallas", cov_impl="pallas")
+        grid=GridSpec1D(num_points=361), num_max_vals=2)
     pipe = build_pipeline_tpu(cfg, return_spectra=False)
     assert pipe.fast_path
     hop = S - OV

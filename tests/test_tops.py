@@ -14,7 +14,7 @@ import golden
 from doa_tpu.configs import (
     ArrayGeometry, DoaConfig, Estimator, GridSpec1D, GridSpec2D,
     WidebandSpec)
-from doa_tpu.cpx import Cpx, embed_hermitian
+from doa_tpu.cpx import Cpx
 from doa_tpu.io import SourceSpec
 from doa_tpu.io.synthetic import synth_wideband_ula_iq, synth_wideband_ura_iq
 from doa_tpu.ops.tops import tops_spectrum_cpx, wideband_tops_cpx
@@ -90,8 +90,8 @@ def test_tops_spectrum_matches_golden():
 
 
 def test_tops_esub_path_matches_stream_path():
-    """The Pallas-front-end entry (pre-embedded E_sub) and the stream
-    entry compute the same spectrum."""
+    """The pipeline's interleaved-ingest entry (deinterleaved on the
+    device) and the stream entry compute the same spectrum."""
     cfg = _cfg(snapshot_size=256)
     x = _scene(cfg, 4 * 256, seed=4)
     from doa_tpu.ops.steering import _ula_steering_np, grid_angles_1d
@@ -102,12 +102,18 @@ def test_tops_esub_path_matches_stream_path():
     W = Cpx.from_complex(dft_matrix(cfg.wideband.num_subbands))
     xc = Cpx.from_complex(x)
 
-    from doa_tpu.ops.wideband import subband_covariances
-    R_sub = subband_covariances(xc, W, cfg)
+    from doa_tpu.ops.interleaved import deinterleave, to_interleaved
     P_stream = np.asarray(wideband_tops_cpx(xc, A_stack, W, cfg))
-    P_esub = np.asarray(wideband_tops_cpx(
-        None, A_stack, None, cfg, E_sub=embed_hermitian(R_sub)))
+    xd = deinterleave(to_interleaved(xc.re, xc.im),
+                      cfg.geometry.num_elements)
+    P_esub = np.asarray(wideband_tops_cpx(xd, A_stack, W, cfg))
     np.testing.assert_allclose(P_esub, P_stream, rtol=1e-4, atol=1e-5)
+    pipe = build_pipeline_tpu(cfg)
+    assert pipe.wb_fast
+    res = pipe(x.astype(np.complex64))
+    np.testing.assert_allclose(np.asarray(res.spectra["tops"]),
+                               np.asarray(pipe(xc).spectra["tops"]),
+                               rtol=1e-4, atol=1e-5)
 
 
 def test_tops_resolves_wideband_sources_e2e():

@@ -1,9 +1,6 @@
-"""Wideband fast path (ops/pallas/wideband_cov.py): interleaved
-channelizer + multi-subband Gram kernel, parity vs the split-complex
-XLA reference path (ops/wideband.py) at every fusion mode.
-
-Kernels run in interpret mode on CPU (see conftest); the math is
-identical to the TPU lowering up to matmul precision.
+"""Wideband interleaved-ingest path: interleaved rows → deinterleave →
+channelizer + per-subband covariances (ops/wideband.py), parity against
+the numpy golden and against the planes entry at every fusion mode.
 """
 
 import dataclasses
@@ -12,25 +9,29 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
+import golden
 from doa_tpu.configs import (ArrayGeometry, DoaConfig, Estimator,
                              GridSpec1D, GridSpec2D, WidebandSpec)
-from doa_tpu.cpx import Cpx, unembed_hermitian
+from doa_tpu.cpx import Cpx
 from doa_tpu.io.synthetic import (SourceSpec, synth_wideband_ula_iq,
                                   synth_wideband_ura_iq)
-from doa_tpu.ops.pallas.cov_embedded import interleave_factor
-from doa_tpu.ops.pallas.wideband_cov import (
-    channelizer_matrix, wideband_cov_embedded_pallas)
+from doa_tpu.ops.interleaved import (
+    deinterleave, interleave_factor, to_interleaved)
 from doa_tpu.ops.wideband import dft_matrix, subband_covariances
 from doa_tpu.pipeline_tpu import build_pipeline_tpu
 
 
-@pytest.mark.parametrize("variant", ["fft", "embedded", "uhat"])
+@pytest.mark.parametrize("variant", ["interleaved", "planes",
+                                     "to_interleaved"])
 @pytest.mark.parametrize("N,F,S,overlap", [
     (4, 16, 256, 0),        # TPACK=16 | F
     (8, 8, 256, 64),        # subband-domain overlap (hop_sub < S_sub)
     (4, 16, 512, 128),
 ])
 def test_subband_cov_parity(N, F, S, overlap, variant):
+    """Per-subband covariances of the corrected capture, entered as raw
+    interleaved rows, as planes, or as planes converted to rows, equal
+    the float64 golden channelizer + covariance."""
     rng = np.random.default_rng(0)
     T = 4096
     x = (rng.standard_normal((T, N))
@@ -41,51 +42,28 @@ def test_subband_cov_parity(N, F, S, overlap, variant):
         geometry=ArrayGeometry(kind="ula", num_elements=N),
         snapshot_size=S, overlap=overlap,
         wideband=WidebandSpec(num_subbands=F, fractional_bw=0.1))
-    # reference: correction applied to the sample stream, then the
-    # split-complex channelize + per-subband covariance
-    xc = x * c[None, :]
+    tp = interleave_factor(N)
+    if variant == "interleaved":
+        xc = deinterleave(jnp.asarray(np.ascontiguousarray(x).view(
+            np.float32).reshape(T // tp, 2 * N * tp)), N)
+    elif variant == "planes":
+        xc = Cpx.from_complex(x)
+    else:
+        p = Cpx.from_complex(x)
+        xc = deinterleave(to_interleaved(p.re, p.im), N)
+    cc = Cpx.from_complex(c)
     W = dft_matrix(F)
-    R_ref = subband_covariances(
-        Cpx(jnp.asarray(xc.real), jnp.asarray(xc.imag)),
+    R = subband_covariances(
+        xc * Cpx(cc.re[None, :], cc.im[None, :]),
         Cpx(jnp.asarray(W.real), jnp.asarray(W.imag)), cfg)
-    tp = interleave_factor(N)
-    xil = np.ascontiguousarray(x).view(np.float32).reshape(
-        T // tp, 2 * N * tp)
-    E = wideband_cov_embedded_pallas(
-        jnp.asarray(xil), jnp.asarray(channelizer_matrix(F, N)),
-        jnp.asarray(c.real.astype(np.float32)),
-        jnp.asarray(c.imag.astype(np.float32)),
-        N=N, F=F, snapshot_size=S, overlap=overlap, variant=variant,
-        interpret=True)
-    R = unembed_hermitian(E)
-    assert R.re.shape == R_ref.re.shape
-    scale = float(jnp.max(jnp.abs(R_ref.re)))
-    np.testing.assert_allclose(np.asarray(R.re), np.asarray(R_ref.re),
+    R_ref = golden.subband_covariances(x.astype(np.complex128) * c, F, S,
+                                       overlap)
+    assert R.re.shape == R_ref.shape
+    scale = float(np.abs(R_ref).max())
+    np.testing.assert_allclose(np.asarray(R.re), R_ref.real,
                                atol=2e-5 * scale)
-    np.testing.assert_allclose(np.asarray(R.im), np.asarray(R_ref.im),
+    np.testing.assert_allclose(np.asarray(R.im), R_ref.imag,
                                atol=2e-5 * scale)
-
-
-@pytest.mark.parametrize("sb_group", [2, 4])
-def test_subband_group_consolidation_parity(sb_group):
-    from doa_tpu.ops.pallas.wideband_cov import (
-        channelize_frames, subband_grams_pallas)
-    rng = np.random.default_rng(1)
-    N, F, T = 4, 16, 2048
-    x = (rng.standard_normal((T, N))
-         + 1j * rng.standard_normal((T, N))).astype(np.complex64)
-    tp = interleave_factor(N)
-    xil = jnp.asarray(np.ascontiguousarray(x).view(np.float32).reshape(
-        T // tp, 2 * N * tp))
-    Y = channelize_frames(xil, jnp.asarray(channelizer_matrix(F, N)),
-                          F, N, tp)
-    U1 = subband_grams_pallas(Y, F=F, N=N, g=32, sb_group=1,
-                              interpret=True)
-    Ug = subband_grams_pallas(Y, F=F, N=N, g=32, sb_group=sb_group,
-                              interpret=True)
-    np.testing.assert_allclose(np.asarray(U1), np.asarray(Ug),
-                               rtol=0, atol=1e-4 * float(
-                                   jnp.max(jnp.abs(U1))))
 
 
 _ULA_MODES = [("incoherent", "dense", "power"),
@@ -112,12 +90,11 @@ def test_pipeline_wideband_fast_parity_ula(fusion, scan_mode, subspace):
         wideband=WidebandSpec(num_subbands=8, fractional_bw=0.1,
                               fusion=fusion),
         subspace_method=subspace, scan_mode=scan_mode)
-    pipe_ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="xla"))
-    pipe_fast = build_pipeline_tpu(
-        dataclasses.replace(cfg, cov_impl="pallas"))
-    assert pipe_fast.wb_fast
-    a0 = np.asarray(pipe_ref(x, correction=c).peak_angles["music"])
-    a1 = np.asarray(pipe_fast(x, correction=c).peak_angles["music"])
+    pipe = build_pipeline_tpu(cfg)
+    assert pipe.wb_fast
+    a0 = np.asarray(pipe(Cpx.from_complex(x),
+                         correction=c).peak_angles["music"])
+    a1 = np.asarray(pipe(x, correction=c).peak_angles["music"])
     np.testing.assert_allclose(a1, a0, atol=5e-3)
     med = np.sort(np.median(a1, axis=0))
     assert abs(med[0] - 62.0) < 2.5 and abs(med[1] - 111.0) < 2.5, med
@@ -143,12 +120,12 @@ def test_pipeline_wideband_fast_parity_ura(fusion, scan_mode):
         wideband=WidebandSpec(num_subbands=16, fractional_bw=0.1,
                               fusion=fusion),
         scan_mode=scan_mode)
-    pipe_ref = build_pipeline_tpu(dataclasses.replace(cfg, cov_impl="xla"))
-    pipe_fast = build_pipeline_tpu(
-        dataclasses.replace(cfg, cov_impl="pallas"))
-    assert pipe_fast.wb_fast
-    a0 = np.asarray(pipe_ref(x).peak_angles["music"])
-    a1 = np.asarray(pipe_fast(x).peak_angles["music"])
+    pipe = build_pipeline_tpu(cfg)
+    assert pipe.wb_fast
+    a0 = np.asarray(pipe(Cpx.from_complex(x)).peak_angles["music"])
+    tp = interleave_factor(16)
+    a1 = np.asarray(pipe.interleaved(np.ascontiguousarray(x).view(
+        np.float32).reshape(x.shape[0] // tp, -1)).peak_angles["music"])
     np.testing.assert_allclose(a1, a0, atol=5e-3)
 
 
@@ -170,7 +147,7 @@ def test_wideband_warm_start_subspace(snr_db, scan_mode):
         estimators=(Estimator.MUSIC,),
         grid=GridSpec1D(num_points=256),
         wideband=WidebandSpec(num_subbands=8, fractional_bw=0.1),
-        scan_mode=scan_mode, cov_impl="pallas")
+        scan_mode=scan_mode, subspace_warm_start=False)
     cold = build_pipeline_tpu(cfg)
     warm = build_pipeline_tpu(
         dataclasses.replace(cfg, subspace_warm_start=True))
@@ -213,7 +190,7 @@ def test_wb_fast_gating():
     """tp ∤ F falls back to the planes path (no wb_fast)."""
     cfg = DoaConfig(
         geometry=ArrayGeometry(kind="ula", num_elements=4),  # TPACK=16
-        snapshot_size=256, cov_impl="pallas",
+        snapshot_size=256,
         wideband=WidebandSpec(num_subbands=8))               # 16 ∤ 8
     pipe = build_pipeline_tpu(cfg)
     assert not pipe.wb_fast
